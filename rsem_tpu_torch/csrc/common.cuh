@@ -1,0 +1,27 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rsem {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Grid for a grid-stride loop: enough blocks for `work_items` (each block
+// covers `items_per_block`), capped at `blocks_per_sm` resident blocks per SM
+// so per-block set-up (a shared-memory table fill, a histogram flush) is paid
+// a bounded number of times.
+inline int grid_for(int64_t work_items, int64_t items_per_block,
+                    int blocks_per_sm) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int64_t need = (work_items + items_per_block - 1) / items_per_block;
+  int64_t cap = (int64_t)(sms > 0 ? sms : 1) * blocks_per_sm;
+  int64_t g = need < cap ? need : cap;
+  return (int)(g > 0 ? g : 1);
+}
+
+}  // namespace rsem

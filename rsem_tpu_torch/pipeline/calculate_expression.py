@@ -1,0 +1,361 @@
+"""The quantification driver (rsem-calculate-expression equivalent).
+
+Counterpart of rsem_tpu/pipeline/calculate_expression.py, default path
+(:166-430 and :455-540 there): transcript alignments (SAM/BAM) -> model
+estimation -> EM on the device -> results tables -> transcript BAM.
+Interop artifacts (.cnt/.model/.theta/.mparams, .ofg with
+--keep-intermediate-files) are written under sample_name.stat/ and
+sample_name.temp/ as the reference does.
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+item: --calc-pme and pRSEM (A9), --calc-ci (A10), and (posterior BAM
+options, aligner runs, allele references) --output-genome-bam, the BAM
+sort flags, running an aligner and allele-specific references.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import sys
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from ..constants import DEFAULT_SEED_LEN
+from ..engine.em import EMConfig, run_em, write_theta_file
+from ..io import parse_alignments
+from ..io.bam_writer import write_transcript_bam
+from ..io.results import (
+    gene_level_values,
+    write_gene_results,
+    write_isoform_results,
+)
+from ..io.sam import finalize_cnt
+from ..model import GenerativeModel, ModelSpec
+from ..refprep.reference import Reference
+from ..refprep.transcripts import GroupInfo, Transcripts
+from ..utils.device import DeviceLike, resolve_device
+
+
+@dataclass
+class ExpressionConfig:
+    """The reference CLI surface (rsem-calculate-expression:129-205) that
+    this slice supports, plus the flags it refuses."""
+
+    paired_end: bool = False
+    no_qualities: bool = False
+    strandedness: str = "none"  # none | forward | reverse
+    seed: Optional[int] = None
+    seed_length: int = DEFAULT_SEED_LEN
+    # model
+    fragment_length_min: int = 1
+    fragment_length_max: int = 1000
+    fragment_length_mean: float = -1.0
+    fragment_length_sd: float = 0.0
+    estimate_rspd: bool = False
+    num_rspd_bins: int = 20
+    # not ported yet (raise)
+    calc_pme: bool = False
+    calc_ci: bool = False
+    run_prsem: bool = False
+    output_genome_bam: bool = False
+    sort_bam_by_coordinate: bool = False
+    sort_bam_by_read_name: bool = False
+    # BAM output (rsem-calculate-expression:94-99,505-527,645-674)
+    no_bam_output: bool = False
+    sampling_for_bam: bool = False
+    # misc
+    append_names: bool = False
+    tag: str = "XM"
+    keep_intermediate_files: bool = False
+    quiet: bool = False
+    fai: Optional[str] = None  # .fai for header-less SAM inputs
+    record_time: bool = False  # --time -> sample_name.time
+    temporary_folder: Optional[str] = None
+    profile_dir: Optional[str] = None  # torch.profiler trace output
+
+    @property
+    def read_type(self) -> int:
+        return (2 if self.paired_end else 0) + (0 if self.no_qualities else 1)
+
+    @property
+    def probF(self) -> float:
+        return {"none": 0.5, "forward": 1.0, "reverse": 0.0}[self.strandedness]
+
+
+@dataclass
+class ExpressionResult:
+    em: object
+    cnt: Optional[object] = None
+
+
+_BAM_ITEM = "posterior BAM options, aligner runs, allele references"
+_NOT_PORTED = (
+    ("calc_pme", "--calc-pme", "A9 (Gibbs with kernel K5)"),
+    ("run_prsem", "--run-pRSEM", "A9 (Gibbs with kernel K5)"),
+    ("calc_ci", "--calc-ci", "A10 (credibility intervals)"),
+    ("output_genome_bam", "--output-genome-bam", _BAM_ITEM),
+    ("sort_bam_by_coordinate", "--sort-bam-by-coordinate", _BAM_ITEM),
+    ("sort_bam_by_read_name", "--sort-bam-by-read-name", _BAM_ITEM),
+)
+
+
+def _stage_seeds(seed: Optional[int]):
+    if seed is None:
+        return [None, None, None]
+    rng = np.random.RandomState(seed)
+    return [int(x) for x in rng.randint(0, 2**31, size=3)]
+
+
+def _refuse_unported(cfg: ExpressionConfig, reference_name: str) -> None:
+    for attr, flag, item in _NOT_PORTED:
+        if getattr(cfg, attr):
+            raise NotImplementedError(
+                f"{flag} is not ported to rsem_tpu_torch yet (ROADMAP: "
+                f"{item})")
+    if os.path.exists(f"{reference_name}.gt") and os.path.exists(
+            f"{reference_name}.ta"):
+        raise NotImplementedError(
+            "allele-specific references are not ported to rsem_tpu_torch "
+            f"yet (ROADMAP: {_BAM_ITEM})")
+
+
+def calculate_expression(
+    alignments: str,
+    reference_name: str,
+    sample_name: str,
+    cfg: Optional[ExpressionConfig] = None,
+    device: DeviceLike = None,
+) -> ExpressionResult:
+    """alignments: SAM/BAM of transcript alignments. Runs the EM on CUDA
+    unless device="cpu" is given."""
+    cfg = cfg or ExpressionConfig()
+    dev = resolve_device(device)
+    _refuse_unported(cfg, reference_name)
+    t_start = time.time()
+    from ..utils.timing import StageTimer, maybe_profile
+
+    timer = StageTimer()
+    sample_token = os.path.basename(sample_name)
+    temp_dir = cfg.temporary_folder or f"{sample_name}.temp"
+    stat_dir = f"{sample_name}.stat"
+    os.makedirs(temp_dir, exist_ok=True)
+    os.makedirs(stat_dir, exist_ok=True)
+    imd = os.path.join(temp_dir, sample_token)
+    stat = os.path.join(stat_dir, sample_token)
+
+    # ---- reference ----
+    ref = Reference.load_seq(f"{reference_name}.seq")
+    ts = Transcripts.read_ti(f"{reference_name}.ti")
+    gi = GroupInfo.load(f"{reference_name}.grp")
+    names = [""] + [
+        (t.seqname if ts.is_allele_specific else t.transcript_id)
+        for t in ts.transcripts
+    ]
+
+    spec = ModelSpec(
+        model_type=cfg.read_type,
+        est_rspd=cfg.estimate_rspd,
+        B=cfg.num_rspd_bins,
+        minL=cfg.fragment_length_min,
+        maxL=cfg.fragment_length_max,
+        mate_minL=1,
+        mate_maxL=cfg.fragment_length_max,
+        mean=cfg.fragment_length_mean,
+        sd=cfg.fragment_length_sd,
+        probF=cfg.probF,
+        seed_len=cfg.seed_length,
+        has_polya=ref.has_polya,
+    )
+    spec.write_mparams(f"{imd}.mparams")
+
+    # ---- parse alignments (rsem-parse-alignments) ----
+    with timer.stage("parse-alignments"):
+        bundle = parse_alignments(
+            alignments, names, cfg.read_type, ref.has_polya, cfg.seed_length,
+            filter_tag=cfg.tag, fai=cfg.fai,
+        )
+    sid2gid = np.concatenate([[0], gi.gids_of(np.arange(1, ts.M + 1))])
+    finalize_cnt(bundle, sid2gid)
+    bundle.cnt.write(f"{stat}.cnt")
+    with open(f"{imd}.omit", "w") as f:
+        for sid in bundle.omit:
+            f.write(f"{sid}\n")
+    if bundle.cnt.N1 == 0:
+        raise RuntimeError("No alignable reads; nothing to estimate.")
+
+    # ---- EM ----
+    need_posteriors = (not cfg.no_bam_output) or cfg.keep_intermediate_files
+    with timer.stage("em"), maybe_profile(cfg.profile_dir):
+        model = GenerativeModel(spec, ref)
+        model.estimate_from_stats(bundle.stats)
+        em = run_em(model, ref, bundle, EMConfig(verbose=not cfg.quiet),
+                    need_posteriors=need_posteriors, device=dev)
+
+    model.write(f"{stat}.model")
+    write_theta_file(f"{stat}.theta", em.theta_raw, em.theta)
+    if cfg.keep_intermediate_files:
+        # stage-restart surface (EM.cpp:435-457): final-model conditional
+        # probabilities, consumable by rsem-run-gibbs
+        from ..io.ofg import write_ofg
+
+        write_ofg(f"{imd}.ofg", ref.M, bundle.cnt.N0, bundle.hits,
+                  em.log_conprb, em.log_ncp)
+
+    # ---- final tables ----
+    tlens = ts.lengths()
+    gl = gene_level_values(gi, tlens, em.eel, em.counts, em.tpm, em.fpkm)
+    write_isoform_results(
+        f"{sample_name}.isoforms.results", ts, tlens, em.eel, em.counts,
+        em.tpm, em.fpkm, gl.isopct, cfg.append_names, [],
+    )
+    write_gene_results(
+        f"{sample_name}.genes.results", ts, gi, gl, cfg.append_names, []
+    )
+
+    # ---- posterior-weighted BAM output ----
+    if not cfg.no_bam_output:
+        seed0 = _stage_seeds(cfg.seed)[0]
+        with timer.stage("bam-output"):
+            write_transcript_bam(
+                alignments, f"{sample_name}.transcript.bam", bundle.hits,
+                em.frac_hit, em.frac_noise, paired=cfg.paired_end,
+                sampling=cfg.sampling_for_bam, seed=seed0, command=None,
+            )
+
+    if not cfg.keep_intermediate_files and cfg.temporary_folder is None:
+        shutil.rmtree(temp_dir, ignore_errors=True)
+    if cfg.record_time:
+        timer.write_time_file(f"{sample_name}.time")
+    if not cfg.quiet:
+        print(
+            f"calculate_expression finished in {time.time() - t_start:.1f}s "
+            f"({em.rounds} EM rounds, device {dev}). Stage breakdown:"
+        )
+        timer.report(log=print, n_reads=bundle.cnt.n_tot)
+    return ExpressionResult(em=em, cnt=bundle.cnt)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="rsem-tpu-torch-calculate-expression",
+        description="Estimate expression from transcript alignments "
+        "(SAM/BAM) with the PyTorch/CUDA port.",
+    )
+    p.add_argument(
+        "inputs", nargs="+",
+        help="with --alignments: input reference_name sample_name "
+        "(or reference_name sample_name after --alignments <file>)",
+    )
+    p.add_argument("--sam", action="store_true",
+                   help="deprecated alias: input is SAM (implies "
+                   "--alignments)")
+    p.add_argument("--bam", action="store_true",
+                   help="deprecated alias: input is BAM (implies "
+                   "--alignments)")
+    p.add_argument("--alignments", nargs="?", const=True, default=None,
+                   metavar="SAM/BAM",
+                   help="input is SAM/BAM aligned to the transcript "
+                   "reference (the only input this port takes so far)")
+    p.add_argument("--device", default=None,
+                   help="torch device: cuda (default) or cpu")
+    p.add_argument("-p", "--num-threads", type=int, default=1,
+                   help="accepted for CLI compatibility; unused")
+    p.add_argument("--paired-end", action="store_true")
+    p.add_argument("--no-qualities", action="store_true")
+    p.add_argument("--strandedness", choices=["none", "forward", "reverse"],
+                   default="none")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--seed-length", type=int, default=DEFAULT_SEED_LEN)
+    p.add_argument("--fragment-length-min", type=int, default=1)
+    p.add_argument("--fragment-length-max", type=int, default=1000)
+    p.add_argument("--fragment-length-mean", type=float, default=-1.0)
+    p.add_argument("--fragment-length-sd", type=float, default=0.0)
+    p.add_argument("--estimate-rspd", action="store_true")
+    p.add_argument("--num-rspd-bins", type=int, default=20)
+    p.add_argument("--calc-pme", action="store_true")
+    p.add_argument("--calc-ci", action="store_true")
+    p.add_argument("--run-pRSEM", dest="run_prsem", action="store_true")
+    p.add_argument("--no-bam-output", action="store_true")
+    p.add_argument("--sampling-for-bam", action="store_true")
+    p.add_argument("--output-genome-bam", action="store_true")
+    p.add_argument("--sort-bam-by-coordinate", action="store_true")
+    p.add_argument("--sort-bam-by-read-name", action="store_true")
+    p.add_argument("--append-names", action="store_true")
+    p.add_argument("--tag", default="XM")
+    p.add_argument("--keep-intermediate-files", action="store_true")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("--fai", default=None,
+                   help=".fai giving target names/lengths for SAM inputs "
+                   "without @SQ header lines")
+    p.add_argument("--time", dest="record_time", action="store_true",
+                   help="write per-stage wall-clock to sample_name.time")
+    p.add_argument("--temporary-folder", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the EM stage here")
+    return p
+
+
+def _resolve_inputs(args):
+    """(alignment_file, reference_name, sample_name) following the
+    reference's positional convention (rsem-calculate-expression:337-348)."""
+    pos = list(args.inputs)
+    if args.alignments is None and (args.sam or args.bam):
+        args.alignments = True
+    if args.alignments is None:
+        raise NotImplementedError(
+            "running an aligner is not ported to rsem_tpu_torch yet; pass "
+            f"--alignments (ROADMAP: {_BAM_ITEM})")
+    if isinstance(args.alignments, str):
+        if len(pos) != 2:
+            raise SystemExit(
+                "with --alignments <file>: reference_name sample_name")
+        return args.alignments, pos[0], pos[1]
+    if len(pos) != 3:
+        raise SystemExit("with --alignments: input reference_name sample_name")
+    return pos[0], pos[1], pos[2]
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    input_file, reference_name, sample_name = _resolve_inputs(args)
+    cfg = ExpressionConfig(
+        paired_end=args.paired_end,
+        no_qualities=args.no_qualities,
+        strandedness=args.strandedness,
+        seed=args.seed,
+        seed_length=args.seed_length,
+        fragment_length_min=args.fragment_length_min,
+        fragment_length_max=args.fragment_length_max,
+        fragment_length_mean=args.fragment_length_mean,
+        fragment_length_sd=args.fragment_length_sd,
+        estimate_rspd=args.estimate_rspd,
+        num_rspd_bins=args.num_rspd_bins,
+        calc_pme=args.calc_pme,
+        calc_ci=args.calc_ci,
+        run_prsem=args.run_prsem,
+        output_genome_bam=args.output_genome_bam,
+        sort_bam_by_coordinate=args.sort_bam_by_coordinate,
+        sort_bam_by_read_name=args.sort_bam_by_read_name,
+        no_bam_output=args.no_bam_output,
+        sampling_for_bam=args.sampling_for_bam,
+        append_names=args.append_names,
+        tag=args.tag,
+        keep_intermediate_files=args.keep_intermediate_files,
+        quiet=args.quiet,
+        fai=args.fai,
+        record_time=args.record_time,
+        temporary_folder=args.temporary_folder,
+        profile_dir=args.profile_dir,
+    )
+    calculate_expression(input_file, reference_name, sample_name, cfg,
+                         device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,252 @@
+"""Synthetic dataset generation for benchmarks, compile checks and tests.
+
+Builds a Reference + AlignmentBundle directly in memory (no SAM round-trip):
+reads are true substrings of transcripts (so likelihoods are realistic), with
+extra decoy alignments to exercise multi-mapping.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from .io.hits import CntStats, HitArrays
+from .io.reads import PairedReadArrays, ReadArrays, ReadStats
+from .io.sam import AlignmentBundle
+from .model.generative import GenerativeModel
+from .model.spec import ModelSpec
+from .refprep.reference import Reference
+from .utils.seq import decode
+
+
+def synthetic_arrays_fast(
+    n_reads: int = 500_000,
+    M: int = 20_000,
+    read_len: int = 100,
+    tx_len: int = 2000,
+    paired: bool = False,
+    has_qual: bool = True,
+    mean_extra_hits: float = 1.5,
+    seed: int = 0,
+    collect_qual_stats: bool = False,
+    skewed_hits: bool = False,
+    consistent_reads: bool = True,
+) -> Tuple[Reference, AlignmentBundle, ModelSpec, GenerativeModel]:
+    """Fully vectorized generator for benchmarks. With consistent_reads
+    (default, r4) read sequences copy their first alignment's target
+    substring with 0.5% errors — the same distribution as the measured
+    reference workload (tools/measure_baseline.py), so EM posteriors are
+    realistic; consistent_reads=False keeps the r1-r3 random-content
+    behavior (arbitrary likelihoods, identical compute shape).
+    collect_qual_stats=False skips the QualDist transition counting (only
+    needed by the simulator / .model file, not by any kernel)."""
+    rng = np.random.default_rng(seed)
+    model_type = (2 if paired else 0) + (1 if has_qual else 0)
+
+    lens = rng.integers(max(read_len * 3, tx_len // 2), tx_len + 1, size=M)
+    codes = rng.integers(0, 4, size=int(lens.sum()), dtype=np.int64).astype(np.uint8)
+    ref = Reference.__new__(Reference)
+    ref.names = [""] + [f"TX{i:05d}" for i in range(M)]
+    ref.full_len = np.concatenate([[0], lens]).astype(np.int64)
+    ref.tot_len = ref.full_len.copy()
+    ref.mask_start = ref.full_len.copy()
+    ref.codes = codes
+    ref.offsets = np.zeros(M + 2, dtype=np.int64)
+    np.cumsum(ref.tot_len, out=ref.offsets[1:])
+
+    n_hits_per = 1 + rng.poisson(mean_extra_hits, size=n_reads)
+    if skewed_hits:
+        # realistic skew (SURVEY §5 "long-context" axes): most reads map
+        # 1-4 places, a heavy tail multimaps up to the reference's bowtie
+        # -m 200 cap (rsem-calculate-expression:40)
+        tail = rng.random(n_reads) < 0.05
+        n_hits_per[tail] = np.clip(
+            np.exp(rng.uniform(np.log(4), np.log(200), size=int(tail.sum()))),
+            4, 200,
+        ).astype(n_hits_per.dtype)
+    H = int(n_hits_per.sum())
+    rid = np.repeat(np.arange(n_reads, dtype=np.int32), n_hits_per)
+    sid = rng.integers(1, M + 1, size=H).astype(np.int32)
+    dirs = rng.integers(0, 2, size=H).astype(np.int8)
+    if paired:
+        ins = rng.integers(2 * read_len, 3 * read_len, size=H).astype(np.int32)
+        ins = np.minimum(ins, ref.tot_len[sid].astype(np.int32))
+        span = ins
+    else:
+        ins = None
+        span = np.full(H, read_len, dtype=np.int32)
+    max_pos = (ref.tot_len[sid] - span).astype(np.int64)
+    pos = (rng.random(H) * (max_pos + 1)).astype(np.int32)
+    offsets = np.zeros(n_reads + 1, dtype=np.int64)
+    np.cumsum(n_hits_per, out=offsets[1:])
+    hits = HitArrays(rid, sid, dirs, pos, ins, offsets)
+
+    def make_quals():
+        return (
+            rng.integers(20, 40, size=(n_reads, read_len), dtype=np.int64).astype(np.uint8)
+            if has_qual else None
+        )
+
+    def reads_from_hits(mate2: bool = False):
+        """Read codes copied from the FIRST alignment's target substring
+        with 0.5% errors (same distribution as tools/measure_baseline.py's
+        reference dataset, so hit likelihoods are realistic and the EM
+        posterior is non-degenerate). `pos` is STRAND-LOCAL (SamParser.h:
+        136-142): dir=1 reads walk ref[tot-1-pos-j] reverse-complemented."""
+        if consistent_reads:
+            fh = offsets[:-1]  # first hit of each read
+            s, p, d = sid[fh], pos[fh].astype(np.int64), dirs[fh]
+            tl = ref.tot_len[s]
+            L = read_len
+            if not mate2:
+                start = np.where(d == 0, p, tl - p - L)
+                flip = d == 1
+            else:
+                i2 = ins[fh].astype(np.int64)
+                start = np.where(d == 0, p + i2 - L, tl - p - i2)
+                flip = d == 0
+            gather = (ref.offsets[s] + start)[:, None] + np.arange(L)[None, :]
+            rc = ref.codes[gather].astype(np.uint8).copy()
+            rc[flip] = 3 - rc[flip, ::-1]
+            err = rng.random((n_reads, L)) < 0.005
+            rc = np.where(
+                err, rng.integers(0, 4, size=(n_reads, L)), rc
+            ).astype(np.uint8)
+        else:
+            rc = rng.integers(0, 4, size=(n_reads, read_len),
+                              dtype=np.int64).astype(np.uint8)
+        rlens = np.full(n_reads, read_len, dtype=np.int32)
+        return ReadArrays(rc, rlens, make_quals(),
+                          np.zeros(n_reads, dtype=bool))
+
+    m1 = reads_from_hits()
+    if paired:
+        m2 = reads_from_hits(mate2=True)
+        reads = PairedReadArrays.build(m1, m2, 25)
+    else:
+        reads = m1
+
+    stats = {i: ReadStats() for i in range(3)}
+    sq = m1.quals if collect_qual_stats else None
+    stats[1].add_reads(m1.codes, m1.lens, sq, np.zeros(n_reads, bool), False)
+    if paired:
+        sq2 = m2.quals if collect_qual_stats else None
+        stats[1].add_reads(m2.codes, m2.lens, sq2, np.zeros(n_reads, bool), False)
+
+    cnt = CntStats(N0=0, N1=n_reads, N2=0, n_hits=H, read_type=model_type, hist={})
+    bundle = AlignmentBundle(model_type, reads, hits, stats, cnt,
+                             np.zeros(0, dtype=np.int64))
+    spec = ModelSpec(model_type=model_type, seed_len=25, has_polya=False)
+    model = GenerativeModel(spec, ref)
+    model.estimate_from_stats(stats)
+    return ref, bundle, spec, model
+
+
+def synthetic_dataset(
+    n_reads: int = 1000,
+    M: int = 50,
+    read_len: int = 50,
+    tx_len: int = 500,
+    paired: bool = False,
+    has_qual: bool = True,
+    mean_extra_hits: float = 1.0,
+    n0: int = 5,
+    seed: int = 0,
+    est_rspd: bool = False,
+) -> Tuple[Reference, AlignmentBundle, ModelSpec, GenerativeModel]:
+    rng = np.random.default_rng(seed)
+    model_type = (2 if paired else 0) + (1 if has_qual else 0)
+
+    lens = rng.integers(max(tx_len // 2, read_len * 2 + 10), tx_len + 1, size=M)
+    seqs = [decode(rng.integers(0, 4, size=l)) for l in lens]
+    names = [f"TX{i:05d}" for i in range(M)]
+    ref = Reference(names, seqs, [0] * M)
+
+    # expression skewed like real data
+    theta = rng.dirichlet(np.full(M, 0.3))
+    src = rng.choice(M, size=n_reads, p=theta) + 1
+
+    seqs1, quals1, seqs2, quals2 = [], [], [], []
+    per_read_hits = []
+    for i in range(n_reads):
+        sid = int(src[i])
+        tl = int(ref.tot_len[sid])
+        if paired:
+            ins = int(rng.integers(2 * read_len, min(tl, 3 * read_len) + 1)) \
+                if tl >= 2 * read_len else tl
+            pos = int(rng.integers(0, tl - ins + 1))
+            frag = ref.seq_codes(sid)[pos : pos + ins]
+            m1c = frag[:read_len].copy()
+            m2c = frag[-read_len:][::-1].copy()
+            m2c = np.where(m2c < 4, 3 - m2c, m2c).astype(np.uint8)
+            seqs1.append(m1c)
+            seqs2.append(m2c)
+            hits = [(sid, pos, ins)]
+        else:
+            pos = int(rng.integers(0, tl - read_len + 1))
+            seqs1.append(ref.seq_codes(sid)[pos : pos + read_len].copy())
+            hits = [(sid, pos)]
+        if has_qual:
+            quals1.append(rng.integers(20, 40, size=read_len).astype(np.uint8))
+            if paired:
+                quals2.append(rng.integers(20, 40, size=read_len).astype(np.uint8))
+        # decoy multi-map hits
+        n_extra = int(rng.poisson(mean_extra_hits))
+        for _ in range(n_extra):
+            dsid = int(rng.integers(1, M + 1))
+            dtl = int(ref.tot_len[dsid])
+            if paired:
+                dins = min(hits[0][2], dtl)
+                if dtl < dins:
+                    continue
+                dpos = int(rng.integers(0, dtl - dins + 1))
+                hits.append((dsid, dpos, dins))
+            else:
+                if dtl < read_len:
+                    continue
+                dpos = int(rng.integers(0, dtl - read_len + 1))
+                hits.append((dsid, dpos))
+        per_read_hits.append(hits)
+
+    m1 = ReadArrays.build(seqs1, quals1 if has_qual else None, False, 25)
+    if paired:
+        m2 = ReadArrays.build(seqs2, quals2 if has_qual else None, False, 25)
+        reads = PairedReadArrays.build(m1, m2, 25)
+    else:
+        reads = m1
+    hits = HitArrays.from_lists(per_read_hits, paired)
+
+    stats = {i: ReadStats() for i in range(3)}
+    if paired:
+        stats[1].add_reads(m1.codes, m1.lens, m1.quals, reads.lq, False)
+        stats[1].add_reads(m2.codes, m2.lens, m2.quals, reads.lq, False)
+    else:
+        stats[1].add_reads(m1.codes, m1.lens, m1.quals, m1.lq, False)
+    # unalignable reads -> noise stats
+    if n0 > 0:
+        codes0 = rng.integers(0, 4, size=(n0, read_len)).astype(np.uint8)
+        lens0 = np.full(n0, read_len, dtype=np.int32)
+        q0 = rng.integers(20, 40, size=(n0, read_len)).astype(np.uint8) \
+            if has_qual else None
+        lq0 = np.zeros(n0, dtype=bool)
+        stats[0].add_reads(codes0, lens0, q0, lq0, True)
+        if paired:
+            stats[0].add_reads(codes0, lens0, q0, lq0, True)
+
+    hist = {}
+    for h in per_read_hits:
+        hist[len(h)] = hist.get(len(h), 0) + 1
+    cnt = CntStats(
+        N0=n0, N1=n_reads, N2=0, n_unique=0, n_multi=0,
+        n_iso_multi=hits.n_isoform_multi_reads(), n_hits=hits.n_hits,
+        read_type=model_type, hist=hist,
+    )
+    bundle = AlignmentBundle(model_type, reads, hits, stats, cnt,
+                             np.zeros(0, dtype=np.int64))
+
+    spec = ModelSpec(model_type=model_type, seed_len=25, has_polya=False,
+                     est_rspd=est_rspd)
+    model = GenerativeModel(spec, ref)
+    model.estimate_from_stats(stats)
+    return ref, bundle, spec, model

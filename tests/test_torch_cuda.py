@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Marked `cuda`; each test skips without a CUDA device. On the GPU
+machine (which has no JAX, so the JAX conftest is not loaded):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Covers the branches the full-width smoke run does not reach: tables too
+large for the shared-memory copy (gather) or needing the opt-in shared
+memory (scatter), 256-column rows, empty inputs, reads of up to 200 hits
+in the theta round, and PreIdx for paired and quality-less reads."""
+
+import numpy as np
+import pytest
+import torch
+
+from rsem_tpu_torch.convert import model_arrays_to_torch
+from rsem_tpu_torch.engine import em
+from rsem_tpu_torch.io.hits import HitArrays
+from rsem_tpu_torch.ops import conprb, table, theta
+from rsem_tpu_torch.ops.layout import HitsDevice
+from rsem_tpu_torch.testing import synthetic_arrays_fast, synthetic_dataset
+
+pytestmark = pytest.mark.cuda
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _idx(rng, rows, cols, size, dev):
+    return torch.as_tensor(rng.integers(0, size + 1, size=(rows, cols)),
+                           dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("size,cols", [(1000, 128), (900, 256),
+                                       (20000, 128)])
+def test_gather_sum(dev, size, cols):
+    rng = np.random.default_rng(size)
+    idx = _idx(rng, 3000, cols, size, dev)
+    vals = torch.as_tensor(rng.normal(-3, 1, size), dtype=torch.float32,
+                           device=dev)
+    tab = table.padded_table(vals, size)
+    n0 = table.gather_sum.launches
+    got = table.gather_sum(tab, idx)
+    assert table.gather_sum.launches == n0 + 1
+    want = table.gather_sum_plain(tab.cpu(), idx.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    empty = table.gather_sum(tab, idx[:0])
+    assert empty.shape == (0,)
+
+
+@pytest.mark.parametrize("size,cols", [(1000, 128), (900, 256),
+                                       (20000, 128)])
+def test_scatter_add(dev, size, cols):
+    rng = np.random.default_rng(size + 1)
+    idx = _idx(rng, 3000, cols, size, dev)
+    w = torch.as_tensor(rng.random(3000), dtype=torch.float32, device=dev)
+    w[::7] = 0.0
+    got = table.scatter_add(idx, w, size)
+    want = table.scatter_add_plain(idx.cpu(), w.cpu(), size)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_wrappers_check_inputs(dev):
+    idx = torch.zeros((4, 128), dtype=torch.int64, device=dev)
+    tab = torch.zeros(10, device=dev)
+    with pytest.raises(ValueError):
+        table.gather_sum(tab, idx)
+    with pytest.raises(ValueError):
+        table.gather_sum(tab, idx.int()[:, :6])
+    with pytest.raises(ValueError):
+        table.scatter_add(idx.int(), torch.zeros(4, device=dev,
+                                                 dtype=torch.float64), 9)
+
+
+def _ragged_hits(N, M, seed):
+    rng = np.random.default_rng(seed)
+    nh = np.minimum(rng.geometric(0.25, size=N) + (rng.random(N) < 0.03)
+                    * rng.integers(30, 200, size=N), 200).astype(np.int64)
+    H = int(nh.sum())
+    offsets = np.zeros(N + 1, dtype=np.int64)
+    np.cumsum(nh, out=offsets[1:])
+    hits = HitArrays(
+        rid=np.repeat(np.arange(N, dtype=np.int32), nh),
+        sid=rng.integers(1, M + 1, size=H).astype(np.int32),
+        dir=np.zeros(H, dtype=np.int8), pos=np.zeros(H, dtype=np.int32),
+        insert_len=None, read_offsets=offsets)
+    lcp = np.log(rng.random(H) * 0.9 + 0.1) - 20.0
+    lcp[::31] = -np.inf
+    lnp = np.log(rng.random(N) * 0.5 + 0.01) - 25.0
+    lnp[::97] = -np.inf
+    return hits, torch.as_tensor(lcp), torch.as_tensor(lnp)
+
+
+def _data(hits, lcp, lnp, M, device):
+    return theta.scale_conprbs(HitsDevice.from_arrays(hits, device),
+                               lcp.to(device), lnp.to(device), M, 5.0)
+
+
+def test_theta_round_and_loop(dev):
+    M = 3000
+    hits, lcp, lnp = _ragged_hits(5000, M, seed=3)
+    d_gpu, d_cpu = _data(hits, lcp, lnp, M, dev), _data(hits, lcp, lnp, M,
+                                                        CPU)
+    th = torch.as_tensor(np.random.default_rng(1).dirichlet(np.ones(M + 1)),
+                         dtype=torch.float32)
+    c_g, n_g = theta.theta_round(th.to(dev), d_gpu)
+    c_c, n_c = theta.theta_round_plain(th, d_cpu)
+    torch.testing.assert_close(c_g.cpu(), c_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(n_g.cpu(), n_c, rtol=1e-5, atol=1e-6)
+    t_g, r_g = theta.run_theta_loop(th.to(dev), d_gpu, max_round=300)
+    t_c, r_c = theta.run_theta_loop(th, d_cpu, max_round=300)
+    assert r_g == r_c
+    torch.testing.assert_close(t_g.cpu(), t_c, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("read_len", [50, 150])
+@pytest.mark.parametrize("has_qual", [True, False])
+@pytest.mark.parametrize("paired", [False, True])
+def test_preidx_matches_plain(dev, paired, has_qual, read_len):
+    ref, bundle, _spec, model = synthetic_arrays_fast(
+        n_reads=2000, M=40, read_len=read_len, tx_len=5 * read_len,
+        paired=paired, has_qual=has_qual, mean_extra_hits=1.3, seed=9)
+    g = em.upload(ref, bundle, paired, dev)
+    c = em.upload(ref, bundle, paired, CPU)
+    kcfg = em.kernel_config(model, bundle, int(g[1].codes.shape[1]))
+    pg = conprb.precompute_profile_indices_fused(kcfg, *g)
+    pc = conprb.precompute_profile_indices_fused(kcfg, *c)
+    assert torch.equal(pg.flat1.cpu(), pc.flat1)
+    if paired:
+        assert torch.equal(pg.flat2.cpu(), pc.flat2)
+    # and the conprbs built on them
+    dm_g = model_arrays_to_torch(model.device_arrays(), dev)
+    dm_c = model_arrays_to_torch(model.device_arrays(), CPU)
+    lg = conprb.compute_log_conprb(kcfg, *g, dm_g, pg)
+    lc = conprb.compute_log_conprb(kcfg, *c, dm_c, pc)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_run_em_cuda_matches_cpu(dev, paired):
+    import copy
+
+    ref, bundle, _spec, model = synthetic_dataset(
+        n_reads=3000, M=80, read_len=36, tx_len=400, paired=paired,
+        has_qual=True, mean_extra_hits=1.5, seed=11)
+    g = em.run_em(copy.deepcopy(model), ref, bundle, device=dev)
+    c = em.run_em(copy.deepcopy(model), ref, bundle, device="cpu")
+    assert g.rounds == c.rounds
+    np.testing.assert_allclose(g.counts, c.counts, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(g.tpm, c.tpm, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(g.frac_hit, c.frac_hit, rtol=1e-4, atol=1e-6)
