@@ -21,10 +21,22 @@ non-zero on failure:
     and sum(TPM) = 1e6.
  5. one more warm pass under torch.profiler, printing device time by
     kernel and the device's idle share.
- 6. calculate-expression through the CLI entry point on the golden SAMs
+ 6. drive the posterior path at the driver defaults (burn-in 200, 1000
+    samples, 8 chains, 50 CI samples per count vector): run_em with
+    posteriors -> run_gibbs -> run_ci, launch counts of all five kernels
+    zeroed just before and read just after (each must have launched);
+    stage wall times; every count vector sums to N0+N1, sum(pme TPM) =
+    1e6, finite intervals with lb <= ub; then a warm run_gibbs + run_ci
+    under torch.profiler as in phase 5.
+ 7. hold K5 (Gibbs tile sweep) against its plain version on the layout of
+    that EM's conprbs: one initial state, 3 sweeps of 8 chains, identical
+    assignments and tables; time one sweep of each and the bound.
+ 8. calculate-expression through the CLI entry point on the golden SAMs
     (tests/goldens/aln.sam.gz; aln_pe.sam.gz with --paired-end
     --estimate-rspd), compared with the reference RSEM goldens at the
-    tolerances of tests/test_parity.py.
+    tolerances of tests/test_parity.py; then --calc-pme and --calc-ci on
+    aln.sam.gz at the tolerances of tests/test_parity.py:109 and
+    tests/test_parity_extra.py:189-210.
 
 The next-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.
@@ -54,6 +66,8 @@ PEAKS = (("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
 N_READS, M_TX, READ_LEN, TX_LEN = 1_000_000, 20_000, 100, 2000
 WARM_PASSES = 5
 TIMING_SAMPLES = 7
+ISOFORMS_PER_GENE = 4  # gene grouping of the synthetic transcripts
+K5_SWEEPS = 3  # sweeps held against the plain version
 
 
 def fail(msg: str):
@@ -293,18 +307,26 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate):
     return rows
 
 
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by the name its row carries."""
+    from rsem_tpu_torch.ops import conprb, gibbs, table, theta
+
+    return {"preidx_flat": conprb.preidx_flat,
+            "gather_sum": table.gather_sum,
+            "scatter_add": table.scatter_add,
+            "theta_round": theta.theta_round,
+            "sweep_part": gibbs.sweep_part}
+
+
 def phase_main_path(ref, bundle, model0, dev):
     """Full-width run_em: cold pass with launch counts, then warm passes."""
     import numpy as np
     import torch
 
     from rsem_tpu_torch.engine.em import EMConfig, run_em
-    from rsem_tpu_torch.ops import conprb, table, theta
 
-    wrappers = {"preidx_flat": conprb.preidx_flat,
-                "gather_sum": table.gather_sum,
-                "scatter_add": table.scatter_add,
-                "theta_round": theta.theta_round}
+    wrappers = kernel_wrappers()
+    del wrappers["sweep_part"]  # not on this path
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -342,20 +364,18 @@ def phase_main_path(ref, bundle, model0, dev):
     return launches, cold, warm, res.rounds
 
 
-def phase_profile(ref, bundle, model0, dev):
-    """One warm run_em pass under torch.profiler: device time by kernel
-    and the device's idle share of the pass's wall time."""
+def phase_profile(label, fn):
+    """One warm call of `fn` under torch.profiler: device time by kernel
+    and the device's idle share of the call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from rsem_tpu_torch.engine.em import EMConfig, run_em
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_em(copy.deepcopy(model0), ref, bundle, EMConfig(),
-               need_posteriors=False, device=dev)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -366,10 +386,170 @@ def phase_profile(ref, bundle, model0, dev):
     for e in kern:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time)
-    log(f"profile: run_em wall {wall * 1e3:.1f} ms (profiled), device busy "
+    log(f"profile: {label} wall {wall * 1e3:.1f} ms (profiled), device busy "
         f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / 1e6 / wall:.3f}")
     for n, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"profile:   {t / 1e3:9.3f} ms  {c:5d}x  {n[:90]}")
+
+
+def gene_groups(M: int):
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
+    import numpy as np
+
+    return GroupInfo(np.concatenate(
+        [np.arange(1, M + 1, ISOFORMS_PER_GENE), [M + 1]]))
+
+
+def phase_posterior(ref, bundle, model0, dev):
+    """The posterior path at full width and the driver defaults: run_em
+    with posteriors -> run_gibbs -> run_ci. Returns (em result, fitted
+    model, launches, stage seconds)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.engine.ci import CIConfig, run_ci
+    from rsem_tpu_torch.engine.em import EMConfig, run_em
+    from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
+
+    M, cnt = ref.M, bundle.cnt
+    gi = gene_groups(M)
+    gcfg = GibbsConfig(seed=1)  # burnin 200, 1000 samples, 8 chains
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    secs = {}
+    t0 = time.perf_counter()
+    model = copy.deepcopy(model0)
+    em = run_em(model, ref, bundle, EMConfig(), need_posteriors=True,
+                device=dev)
+    t1 = time.perf_counter()
+    secs["em"] = t1 - t0
+    gres = run_gibbs(bundle.hits, em.log_conprb, em.log_ncp, M, cnt.N0,
+                     em.eel, model.mw, gi, gcfg, omit=bundle.omit,
+                     device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    secs["gibbs"] = t2 - t1
+    ci = run_ci(gres.countvectors, em.eel, model.mw, gi, CIConfig(seed=2),
+                device=dev)
+    torch.cuda.synchronize()
+    secs["ci"] = time.perf_counter() - t2
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    log(f"posterior path: stage seconds {secs}, launches {launches}, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the posterior path")
+    cv = gres.countvectors
+    if tuple(cv.shape) != (gcfg.nsamples, M + 1):
+        fail(f"countvectors shape {tuple(cv.shape)}")
+    want = cnt.N0 + cnt.N1
+    sums = cv.double().sum(1)
+    if not bool((sums == want).all()) or bool((cv[:, 1:] < 0).any()):
+        fail(f"count vectors do not conserve N0+N1 = {want} (sums "
+             f"{float(sums.min())}..{float(sums.max())})")
+    tpm_sum = float(gres.pme_tpm.sum())
+    # per-sample TPMs are f32 vectors of 20,000 entries summing to 1e6
+    if abs(tpm_sum - 1e6) > 1e-5 * 1e6:
+        fail(f"sum(pme TPM) {tpm_sum} != 1e6")
+    for name in ("tpm", "fpkm", "gene_tpm", "gene_fpkm"):
+        b = getattr(ci, name)
+        if not (np.isfinite(b.lb).all() and np.isfinite(b.ub).all()
+                and (b.lb <= b.ub + 1e-6).all()):
+            fail(f"CI {name}: non-finite bounds or lb > ub")
+    log(f"posterior path: every count vector sums to {want}, sum(pme TPM) "
+        f"{tpm_sum:.6f}, sum(pme counts) {gres.pme_c.sum():.3f}, CI "
+        f"median TPM width {np.median(ci.tpm.ub[1:] - ci.tpm.lb[1:]):.3f}")
+    phase_profile("run_gibbs + run_ci", lambda: run_ci(run_gibbs(
+        bundle.hits, em.log_conprb, em.log_ncp, M, cnt.N0, em.eel, model.mw,
+        gi, gcfg, omit=bundle.omit, device=dev).countvectors, em.eel,
+        model.mw, gi, CIConfig(seed=2), device=dev))
+    return em, model, launches, secs
+
+
+def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
+    """K5 against its plain version at full width, K5_SWEEPS sweeps of 8
+    chains from one initial state each way: on the posterior path's layout,
+    and on a mixing variant (the same alignments with conprbs drawn from a
+    seed, so reads move between alignments and noise; the workload's decoy
+    alignments have conprbs that underflow, which pins most reads). Then
+    one sweep's time. Returns the K5 row."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.ops import gibbs
+
+    M, C = ref.M, 8
+
+    def hold(lcp, lnp, label):
+        t0 = time.perf_counter()
+        layout = gibbs.build_layout(bundle.hits, lcp, lnp, M, device=dev)
+        t1 = time.perf_counter()
+        base = torch.ones(M + 1)
+        base[0] += bundle.cnt.N0 + layout.n_noise_fixed
+        assigns, tab = gibbs.init_chains(layout, base, C, seed=1, device=dev)
+        log(f"K5 {label} layout: {len(layout.parts)} parts, widths "
+            f"{[p.K for p in layout.parts]}, {layout.n_tiles} tiles per "
+            f"sweep, {layout.n_reads} reads, {layout.n_slots} slots; host "
+            f"build {t1 - t0:.3f} s, chain init {time.perf_counter() - t1:.3f}"
+            f" s")
+        seeds = [gibbs.part_seed(1, pi) for pi in range(len(layout.parts))]
+        a_k = [a.clone() for a in assigns]
+        a_p = [a.clone() for a in assigns]
+        t_k, t_p = tab.clone(), tab.clone()
+
+        def sweep(fn, a_s, t, s):
+            for part, a, sp in zip(layout.parts, a_s, seeds):
+                fn(a, t, part, sp, s)
+
+        for s in range(K5_SWEEPS):
+            sweep(gibbs.sweep_part, a_k, t_k, s)
+            sweep(gibbs.sweep_part_plain, a_p, t_p, s)
+        torch.cuda.synchronize()
+        n_diff = sum(int((x != y).sum()) for x, y in zip(a_k, a_p))
+        if n_diff or not torch.equal(t_k, t_p):
+            fail(f"K5 ({label}) differs from its plain version after "
+                 f"{K5_SWEEPS} sweeps: {n_diff} assignments, max table diff "
+                 f"{float((t_k - t_p).abs().max())}")
+        moved = sum(int((x != y).sum()) for x, y in zip(a_k, assigns))
+        log(f"K5 {label}: identical to the plain version over {K5_SWEEPS} "
+            f"sweeps x {C} chains ({moved} of {C * layout.n_reads} read "
+            f"assignments moved)")
+        k_ms = time_cuda(lambda: sweep(gibbs.sweep_part, a_k, t_k,
+                                       K5_SWEEPS))
+        return layout, k_ms, lambda: sweep(gibbs.sweep_part_plain, a_p, t_p,
+                                           K5_SWEEPS)
+
+    layout, k_ms, plain_sweep = hold(em.log_conprb, em.log_ncp, "EM conprbs")
+    p_ms = time_cuda(plain_sweep, samples=5, warm=1)
+    rng = np.random.default_rng(5)
+    kept = np.isfinite(em.log_conprb)
+    lcp_mix = np.where(kept, rng.normal(-20.0, 2.0, kept.shape), -np.inf)
+    lnp_mix = rng.normal(-23.0, 2.0, em.log_ncp.shape)
+    _l, mix_ms, _p = hold(lcp_mix, lnp_mix, "mixing variant")
+    # each placed slot's sid + cps once, each read's ncs once, every
+    # chain's assignment read and written once, every chain's table read
+    # and written once; ~8 f32 operations per slot and per read per chain
+    n_slots, n_reads, T = layout.n_slots, layout.n_reads, M + 1
+    nbytes = n_slots * 8 + n_reads * 4 + C * n_reads * 8 + C * T * 8
+    b_ms, b_by = bound(nbytes, C * (n_slots + n_reads) * 8, mem_rate,
+                       op_rate)
+    log(f"K5: one sweep = {layout.n_tiles} tile steps in sequence per chain; "
+        f"{k_ms[0] * 1e3 / layout.n_tiles:.2f} us per tile step measured "
+        f"({layout.n_tiles} x that = {k_ms[0]:.3f} ms; mixing variant "
+        f"{mix_ms[0]:.3f} ms), byte bound {b_ms * 1e3:.2f} us")
+    return dict(
+        name="sweep_part", id="K5", route="cuda",
+        source="rsem_tpu_torch/csrc/gibbs_sweep.cu",
+        replaces="rsem_tpu/ops/pallas_gibbs.py:371",
+        shape=f"{len(layout.parts)} parts, {layout.n_tiles} tiles of 8192 "
+              f"slots, {n_reads} reads, {n_slots} slots, {C} chains, table "
+              f"[{C}, {T}]",
+        max_abs_err=0.0, tolerance="identical assignments and tables",
+        ms=k_ms[0], ms_min=k_ms[1], ms_max=k_ms[2], plain_ms=p_ms[0],
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        mixing_ms=mix_ms[0], tiles_per_sweep=layout.n_tiles)
 
 
 def _read_table(path):
@@ -418,6 +598,62 @@ def phase_goldens():
                 f"{eff_err:.3g}")
             if cnt_err >= 1.0 or tpm_err >= tpm_rel or eff_err > eff_abs:
                 fail(f"{sam}: results outside the golden tolerances")
+        phase_posterior_goldens(d, calc)
+
+
+def phase_posterior_goldens(d, calc):
+    """--calc-pme and --calc-ci on aln.sam (already in `d`) on the card."""
+    sam, ref = os.path.join(d, "aln.sam"), os.path.join(d, "ref")
+    common = ["--alignments", sam, ref, "-q", "--device", "cuda", "--seed",
+              "1234", "--gibbs-burnin", "50", "--no-bam-output"]
+    t0 = time.perf_counter()
+    out = os.path.join(d, "pme")
+    if calc(common[:3] + [out] + common[3:] + [
+            "--calc-pme", "--gibbs-number-of-samples", "400"]) != 0:
+        fail("calculate-expression --calc-pme failed")
+    gold_t = _read_table(os.path.join(GOLD, "golden_pme.isoforms.results"))
+    mine = _read_table(f"{out}.isoforms.results")
+    hdr = open(os.path.join(GOLD, "golden_pme.isoforms.results")).readline(
+        ).rstrip("\n").split("\t")
+    pme_i = hdr.index("posterior_mean_count")
+    sd_i = hdr.index("posterior_standard_deviation_of_count")
+    worst = 0.0
+    for tid, g in gold_t.items():
+        dev_ = abs(float(mine[tid][pme_i]) - float(g[pme_i]))
+        lim = max(2.0 * float(g[sd_i]), 1.5)
+        worst = max(worst, dev_ / lim)
+        if dev_ >= lim:
+            fail(f"--calc-pme {tid}: pme {mine[tid][pme_i]} vs golden "
+                 f"{g[pme_i]} (sd {g[sd_i]})")
+    t1 = time.perf_counter()
+    log(f"golden --calc-pme: {t1 - t0:.2f} s, worst |pme - golden| / "
+        f"max(2 sd, 1.5) = {worst:.3f}")
+    out = os.path.join(d, "ci")
+    if calc(common[:3] + [out] + common[3:] + [
+            "--calc-ci", "--gibbs-number-of-samples", "320"]) != 0:
+        fail("calculate-expression --calc-ci failed")
+    rows = [l.rstrip("\n").split("\t")
+            for l in open(f"{out}.isoforms.results")]
+    ghdr = open(os.path.join(GOLD, "golden_ci.isoforms.results")).readline(
+        ).rstrip("\n").split("\t")
+    if rows[0] != ghdr:
+        fail("--calc-ci: isoform columns differ from the golden's")
+    i_lb, i_ub = ghdr.index("TPM_ci_lower_bound"), ghdr.index(
+        "TPM_ci_upper_bound")
+    i_pme = ghdr.index("pme_TPM")
+    n_pos = 0
+    for r in rows[1:]:
+        lb, ub, pme = float(r[i_lb]), float(r[i_ub]), float(r[i_pme])
+        if lb > ub + 1e-6:
+            fail(f"--calc-ci {r[0]}: lb {lb} > ub {ub}")
+        if pme > 1.0:
+            n_pos += 1
+            if lb > pme * 1.25 + 1.0 or ub < pme * 0.75 - 1.0:
+                fail(f"--calc-ci {r[0]}: [{lb}, {ub}] far from pme {pme}")
+    if n_pos <= 10:
+        fail(f"--calc-ci: only {n_pos} expressed transcripts")
+    log(f"golden --calc-ci: {time.perf_counter() - t1:.2f} s, {n_pos} "
+        f"expressed transcripts inside the checks")
 
 
 def main() -> int:
@@ -432,13 +668,25 @@ def main() -> int:
     rows = phase_kernels(ref, bundle, model, dev, mem_rate, op_rate)
     torch.cuda.empty_cache()
     launches, cold, warm, rounds = phase_main_path(ref, bundle, model, dev)
+    from rsem_tpu_torch.engine.em import EMConfig, run_em
+
+    phase_profile("run_em", lambda: run_em(
+        copy.deepcopy(model), ref, bundle, EMConfig(),
+        need_posteriors=False, device=dev))
+    torch.cuda.empty_cache()
+    em, _fitted, post_launches, post_secs = phase_posterior(
+        ref, bundle, model, dev)
+    torch.cuda.empty_cache()
+    rows.append(phase_k5(ref, bundle, em, dev, mem_rate, op_rate))
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        # EM kernels: launches of the main path; K5: of the posterior path
+        r["launches"] = launches.get(r["name"], post_launches[r["name"]])
+        r["posterior_launches"] = post_launches[r["name"]]
         r["kernel_ms"] = r["ms"]
-    phase_profile(ref, bundle, model, dev)
     phase_goldens()
     log(json.dumps({"run_em": {"cold_s": cold, "warm_s": warm,
-                               "rounds": rounds}}))
+                               "rounds": rounds},
+                    "posterior_s": post_secs}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,3 +103,40 @@ def model_from_arrays(state, refs=None) -> GenerativeModel:
     if refs is not None:
         model.refs = refs
     return model
+
+
+def gibbs_state_from_jax(parts, zohs, tables, M: int):
+    """The Gibbs state of the JAX package's tile sweep, in the port's form.
+
+    parts: the JAX layout's parts (objects with `sid_t`, `cps_t`, `ncs_t`
+    [X, 128] arrays and `K`); zohs: one-hot assignments per part [C, X, 128];
+    tables: [C, t_pad, 128] counts + pseudo. Shape-menu padding tiles (no
+    slot with a weight, always at a part's end) are cut off. Returns
+    (list of ops.gibbs.GibbsPart, assign per part [C, n_reads] int32 with -1
+    = noise, table [C, M+1] f32), all on the CPU."""
+    from .ops.gibbs import TILE_ROWS, TILE_SLOTS, GibbsPart
+
+    out_parts, assigns = [], []
+    for p, z in zip(parts, zohs):
+        K = int(p.K)
+        cps = np.array(p.cps_t, dtype=np.float32)
+        ncs_t = np.array(p.ncs_t, dtype=np.float32)
+        real = ((cps > 0) | (ncs_t > 0)).reshape(-1, TILE_SLOTS).any(1)
+        n_tiles = int(np.flatnonzero(real)[-1]) + 1 if real.any() else 0
+        X = n_tiles * TILE_ROWS
+        nr = n_tiles * (TILE_SLOTS // K)
+        ncs = ncs_t[:X].reshape(nr, K)[:, 0]
+        placed = (cps[:X].reshape(nr, K) > 0).any(1) | (ncs > 0)
+        out_parts.append(GibbsPart(
+            sid=torch.as_tensor(np.ascontiguousarray(
+                np.array(p.sid_t, dtype=np.int32)[:X].reshape(-1))),
+            cps=torch.as_tensor(np.ascontiguousarray(cps[:X].reshape(-1))),
+            ncs=torch.as_tensor(np.ascontiguousarray(ncs)),
+            K=K, n_tiles=n_tiles, n_real=int(placed.sum())))
+        zr = np.asarray(z)[:, :X].reshape(z.shape[0], nr, K)
+        a = np.where(zr.any(2), zr.argmax(2), -1).astype(np.int32)
+        assigns.append(torch.as_tensor(a))
+    t = np.array(tables, dtype=np.float32)
+    table = torch.as_tensor(np.ascontiguousarray(
+        t.reshape(t.shape[0], -1)[:, :M + 1]))
+    return out_parts, assigns, table

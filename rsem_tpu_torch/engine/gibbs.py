@@ -1,0 +1,212 @@
+"""Collapsed Gibbs sampler over read assignments (reference: Gibbs.cpp).
+
+Counterpart of rsem_tpu/engine/gibbs.py, tile-sweep path
+(`_run_gibbs_pallas` there, :287-455). The reference runs independent
+chains, each a sequential sweep over all reads per round
+(Gibbs.cpp:265-353). Here every chain sweeps the reads tile by tile (kernel
+K5, ops/gibbs.py): each tile of thousands of reads is one block of the
+blocked collapse, sampling against the counts as they stood at the tile's
+start with its own assignment subtracted exactly.
+
+Flow: layout build on the host from the frozen conprbs; counts set-up with
+omit and prior (`setup_counts`); chain init; burn-in plus retained sweeps,
+every sweep one K5 launch per part, each retained count vector kept on the
+device ([C, samples_per_chain, M+1] f32); then the posterior moments,
+summed in float64 on the device.
+
+Not ported here: the XLA blocked sweep (`n_blocks`) and the mesh path
+(ROADMAP A12), and the TPU watchdog's `sweep_segment`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..constants import EPSILON
+from ..ops.gibbs import (
+    GibbsLayout,
+    build_layout,
+    init_chains,
+    part_seed,
+    sweep_part,
+)
+from ..utils.device import DeviceLike, fetch64, resolve_device
+
+
+@dataclass
+class GibbsConfig:
+    burnin: int = 200
+    nsamples: int = 1000
+    gap: int = 1
+    n_chains: int = 8
+    pseudo_count: float = 1.0
+    seed: int = 0
+    keep_countvectors: bool = True
+
+
+@dataclass
+class GibbsResult:
+    pme_c: np.ndarray  # [M+1] posterior mean counts
+    pve_c: np.ndarray  # [M+1] posterior count variance
+    pme_tpm: np.ndarray
+    pme_fpkm: np.ndarray
+    pve_c_genes: np.ndarray  # [m]
+    # [nsamples, M+1] f32 on the device (CI consumes it there); None unless
+    # keep_countvectors
+    countvectors: Optional[torch.Tensor]
+
+
+def setup_counts(cfg: GibbsConfig, M: int, N0: int, N1: int,
+                 omit: Optional[np.ndarray], prior: Optional[np.ndarray]):
+    """init_counts / pseudo / totc (Gibbs.cpp:152-194 load_omit_info +
+    load_prior_info)."""
+    init_counts = np.zeros(M + 1)
+    if omit is not None and len(omit):
+        init_counts[np.asarray(omit, dtype=np.int64)] = -1
+    if prior is not None:
+        pseudo = np.asarray(prior, dtype=np.float64).copy()
+        pseudo[init_counts < 0] = 0.0
+        totc = 1.0 + pseudo[1:][init_counts[1:] >= 0].sum() + N0 + N1
+    else:
+        pseudo = np.full(M + 1, cfg.pseudo_count)
+        totc = (M + 1 - (init_counts < 0).sum()) * cfg.pseudo_count + N0 + N1
+    return init_counts, pseudo, totc
+
+
+def expression_values(counts: torch.Tensor, eel: np.ndarray, mw: np.ndarray,
+                      pseudo: np.ndarray, totc: float):
+    """theta -> polish -> (tpm, fpkm), each [S, M+1] f32 with column 0 zero,
+    for count vectors [S, M+1] f32 (Gibbs.cpp:317-323).
+
+    The EPSILON tests run in float64 on the host, as the reference's do: an
+    isoform with eel = 0 gets TPM and FPKM 0. (The JAX package compares in
+    float32, where 1e-300 rounds to 0, so eel = 0 passes and its FPKM
+    overflows to inf/NaN.)"""
+    dev = counts.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    ok = torch.as_tensor(eel[1:] >= EPSILON, device=dev)
+    bad = torch.as_tensor((mw[1:] < EPSILON) | (eel[1:] < EPSILON),
+                          device=dev)
+    eel_d = torch.as_tensor(eel[1:], **f32)
+    mw_d = torch.as_tensor(mw[1:], **f32)
+    theta = torch.where(counts < 0, torch.zeros_like(counts),
+                        (counts + torch.as_tensor(pseudo, **f32)) / totc)
+    t = theta.clone()
+    t[:, 1:] = torch.where(bad, torch.zeros_like(theta[:, 1:]),
+                           theta[:, 1:] / torch.where(
+                               bad, torch.ones_like(mw_d), mw_d))
+    t = t / t.sum(1, keepdim=True)
+    frac = torch.where(ok, t[:, 1:], torch.zeros_like(t[:, 1:]))
+    frac = frac / frac.sum(1, keepdim=True).clamp_min(EPSILON)
+    fpkm = torch.where(ok, frac * 1e9 / eel_d.clamp_min(1e-30),
+                       torch.zeros_like(frac))
+    tpm = fpkm / fpkm.sum(1, keepdim=True).clamp_min(EPSILON) * 1e6
+    z = torch.zeros((counts.shape[0], 1), dtype=tpm.dtype,
+                    device=tpm.device)
+    return torch.cat([z, tpm], 1), torch.cat([z, fpkm], 1)
+
+
+def moments(cvs: torch.Tensor, eel: np.ndarray, mw: np.ndarray,
+            pseudo: np.ndarray, totc: float, gi,
+            keep_countvectors: bool = True) -> GibbsResult:
+    """Posterior summaries from the retained count vectors [S, M+1] f32
+    (Gibbs.cpp:355-423 release()); sums in float64 on cvs' device."""
+    dev = cvs.device
+    S, M1 = cvs.shape
+    M = M1 - 1
+    gids = torch.as_tensor(gi.gids_of(np.arange(1, M + 1)),
+                           dtype=torch.int64, device=dev)
+    c64 = cvs.double()
+    sum_c = c64.sum(0)
+    sum_c2 = (c64 * c64).sum(0)
+    gsum = torch.zeros((S, gi.m), dtype=torch.float64, device=dev)
+    gsum.index_add_(1, gids, c64[:, 1:])
+    sum_g2 = (gsum * gsum).sum(0)
+    del c64, gsum
+    tpm, fpkm = expression_values(cvs, np.asarray(eel, dtype=np.float64),
+                                  np.asarray(mw, dtype=np.float64), pseudo,
+                                  totc)
+    sum_tpm = tpm.double().sum(0)
+    sum_fpkm = fpkm.double().sum(0)
+    del tpm, fpkm
+
+    ns = S
+    pme_c = fetch64(sum_c) / ns
+    pve_c = (fetch64(sum_c2) - ns * pme_c ** 2) / (ns - 1)
+    pve_c[pve_c < 0] = 0.0
+    pme_c_genes = np.bincount(gi.gids_of(np.arange(1, M + 1)),
+                              weights=pme_c[1:], minlength=gi.m)
+    pve_c_genes = (fetch64(sum_g2) - ns * pme_c_genes ** 2) / (ns - 1)
+    pve_c_genes[pve_c_genes < 0] = 0.0
+    return GibbsResult(
+        pme_c=pme_c, pve_c=pve_c, pme_tpm=fetch64(sum_tpm) / ns,
+        pme_fpkm=fetch64(sum_fpkm) / ns, pve_c_genes=pve_c_genes,
+        countvectors=cvs if keep_countvectors else None)
+
+
+def retained_index(sweep: int, cfg: GibbsConfig) -> Optional[int]:
+    """Row of `sweep` among the retained samples of its chain, or None."""
+    if sweep < cfg.burnin or (sweep - cfg.burnin) % cfg.gap:
+        return None
+    return (sweep - cfg.burnin) // cfg.gap
+
+
+def run_chains(layout: GibbsLayout, assigns: List[torch.Tensor],
+               table: torch.Tensor, pseudo: torch.Tensor, cfg: GibbsConfig
+               ) -> torch.Tensor:
+    """All sweeps from a given chain state (updated in place). Returns the
+    retained count vectors [C, samples_per_chain, M+1] f32 (counts =
+    table - pseudo)."""
+    C = table.shape[0]
+    spc = cfg.nsamples // C
+    total = cfg.burnin + 1 + (spc - 1) * cfg.gap
+    seeds = [part_seed(cfg.seed, pi) for pi in range(len(layout.parts))]
+    cvs = torch.zeros((C, spc, layout.M + 1), dtype=torch.float32,
+                      device=table.device)
+    for s in range(total):
+        for part, a, sp in zip(layout.parts, assigns, seeds):
+            sweep_part(a, table, part, sp, s)
+        k = retained_index(s, cfg)
+        if k is not None:
+            cvs[:, k] = table - pseudo
+    return cvs
+
+
+def run_gibbs(
+    hits,
+    log_conprb: np.ndarray,
+    log_ncp: np.ndarray,
+    M: int,
+    N0: int,
+    eel: np.ndarray,
+    mw: np.ndarray,
+    gi,
+    cfg: GibbsConfig,
+    omit: Optional[np.ndarray] = None,
+    prior: Optional[np.ndarray] = None,
+    device: DeviceLike = None,
+) -> GibbsResult:
+    """hits: io.HitArrays; log_conprb/log_ncp: final-model conprbs from EM
+    (the .ofg content); gi: gene GroupInfo; prior: [M+1] per-isoform
+    pseudo-counts (pRSEM's --prior). Runs on CUDA unless device="cpu"; the
+    chains' initial draws come from a CPU generator, so both devices start
+    from one state."""
+    dev = resolve_device(device)
+    C = cfg.n_chains
+    if cfg.nsamples % C:
+        raise ValueError(f"nsamples ({cfg.nsamples}) must be divisible by "
+                         f"n_chains ({C})")
+    init_counts, pseudo, totc = setup_counts(cfg, M, N0, hits.n_reads,
+                                             omit, prior)
+    pseudo_d = torch.as_tensor(pseudo, dtype=torch.float32, device=dev)
+    layout = build_layout(hits, log_conprb, log_ncp, M, device=dev)
+    table_base = torch.as_tensor(init_counts + pseudo, dtype=torch.float32)
+    table_base[0] += N0 + layout.n_noise_fixed
+    assigns, table = init_chains(layout, table_base, C, cfg.seed, dev)
+    cvs = run_chains(layout, assigns, table, pseudo_d, cfg)
+    return moments(cvs.reshape(-1, M + 1), eel, mw, pseudo, totc, gi,
+                   cfg.keep_countvectors)

@@ -34,12 +34,15 @@ LIB_NAME = "librsem_tpu_torch_kernels.so"
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_U32 = ctypes.c_uint32
 SIGNATURES = {
     "rsem_gather_sum": [_P, _I64, _P, _I64, _I32, _P, _P],
     "rsem_scatter_add": [_P, _I64, _I32, _P, _I32, _P, _P],
     "rsem_preidx": [_P, _I64, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P,
                     _I64, _I32, _I32, _P, _P],
     "rsem_theta_round": [_P, _P, _P, _P, _I64, _P, _P, _P, _P],
+    "rsem_gibbs_sweep": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I64,
+                         _I64, _U32, _U32, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

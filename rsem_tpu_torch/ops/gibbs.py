@@ -1,0 +1,432 @@
+"""Collapsed-Gibbs tile sweep (K5): layout, counter-hash uniforms, sweep.
+
+Counterpart of rsem_tpu/ops/pallas_gibbs.py. The reference's sampler
+(Gibbs.cpp:265-353) resamples one read at a time against live counts. Here
+reads are packed into tiles of TILE_SLOTS = 64 x 128 alignment slots
+(bucket width K: 8192/K reads per tile), and each tile is one block of the
+blocked collapse: every read of the tile samples against the counts as they
+stood at the start of the tile (its own assignment subtracted exactly), then
+the tile's +-1 count deltas are applied. Tiles run in order; chains are
+independent.
+
+What is kept from the TPU layout, because the chains replay the JAX chains
+only if it matches: the power-of-two bucket widths, the read order inside a
+bucket (narrow reads sorted by their smallest table row, wide reads last),
+the tile boundaries, the split of each bucket into parts (window tiles, then
+full-table tiles), the padding slots' sids, and the counter hash keyed on
+(part seed, sweep, tile, chain, read). What is dropped, because only the TPU
+needed it: the shape-menu padding tiles, the per-tile row windows, the
+scatter bases and the M <= 65,535 cap.
+
+State of a part: `assign` [C, n_reads] int32, the slot index of each read's
+current alignment (-1 = noise), and one count table [C, M+1] f32 holding
+counts + pseudo-counts (index 0 = noise) shared by all parts. `sweep_part`
+updates both IN PLACE (the JAX kernel returns new arrays).
+
+`sweep_part` runs the CUDA kernel (csrc/gibbs_sweep.cu) on CUDA tensors
+and `sweep_part_plain` on CPU tensors. Both use the same float32 arithmetic
+in the same order (no fused multiply-add), so they agree bit for bit.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+TILE_ROWS = 64
+LANES = 128
+TILE_SLOTS = TILE_ROWS * LANES  # slots per tile
+R_WIN = 16  # row-window height deciding a tile's part (window vs full)
+MASK32 = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9  # sweep multiplier of the counter hash
+TILE_MUL = 0x7F4A7C15  # tile multiplier of the counter hash
+
+
+# ------------------------------------------------------------------ #
+# layout                                                             #
+# ------------------------------------------------------------------ #
+@dataclass
+class GibbsPart:
+    """One bucket part's tiles: `n_tiles` tiles of TILE_SLOTS slots, read r
+    of tile t at slots [t*TILE_SLOTS + r*K, ... + K)."""
+
+    sid: torch.Tensor  # [n_tiles * TILE_SLOTS] int32 (padding: in-window sid)
+    cps: torch.Tensor  # [n_tiles * TILE_SLOTS] f32 scaled conprb (padding 0)
+    ncs: torch.Tensor  # [n_tiles * reads_per_tile] f32 noise coefficient
+    K: int  # slots per read (power of two, <= TILE_SLOTS)
+    n_tiles: int
+    n_real: int  # reads of the part; the rest of the last tile is padding
+
+    @property
+    def reads_per_tile(self) -> int:
+        return TILE_SLOTS // self.K
+
+    @property
+    def n_reads(self) -> int:
+        return self.n_tiles * self.reads_per_tile
+
+    def to(self, device) -> "GibbsPart":
+        return GibbsPart(self.sid.to(device), self.cps.to(device),
+                         self.ncs.to(device), self.K, self.n_tiles,
+                         self.n_real)
+
+
+@dataclass
+class GibbsLayout:
+    parts: List[GibbsPart]
+    M: int
+    n_reads: int  # reads placed in tiles (>= 1 kept hit)
+    n_noise_fixed: int  # reads with no kept hit: noise for good
+
+    @property
+    def n_tiles(self) -> int:
+        return sum(p.n_tiles for p in self.parts)
+
+    @property
+    def n_slots(self) -> int:
+        """Slots of the placed reads (reads x bucket width)."""
+        return sum(p.n_real * p.K for p in self.parts)
+
+    def to(self, device) -> "GibbsLayout":
+        return GibbsLayout([p.to(device) for p in self.parts], self.M,
+                           self.n_reads, self.n_noise_fixed)
+
+
+def scale_conprbs(hits, log_conprb: np.ndarray, log_ncp: np.ndarray):
+    """Per-read max-logit scaling of the frozen conprbs (f64, then f32):
+    (cps [H], ncs [N]), as the JAX package's pallas_round.scale_conprbs."""
+    N = hits.n_reads
+    offs = hits.read_offsets.astype(np.int64)
+    nh = np.diff(offs)
+    log_conprb = np.asarray(log_conprb, dtype=np.float64)
+    log_ncp = np.asarray(log_ncp, dtype=np.float64)
+    if hits.n_hits:
+        read_max = np.maximum.reduceat(log_conprb, offs[:-1])
+        read_max[nh == 0] = -np.inf  # reduceat reads a neighbour there
+    else:
+        read_max = np.full(N, -np.inf)
+    read_max = np.maximum(read_max, log_ncp)
+    safe_max = np.where(np.isfinite(read_max), read_max, 0.0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        cps = np.exp(log_conprb - np.repeat(safe_max, nh)).astype(np.float32)
+        ncs = np.exp(log_ncp - safe_max).astype(np.float32)
+    cps[~np.isfinite(log_conprb)] = 0.0
+    ncs[~np.isfinite(log_ncp)] = 0.0
+    return cps, ncs
+
+
+def build_layout(hits, log_conprb: np.ndarray, log_ncp: np.ndarray,
+                 M: int, device=None) -> GibbsLayout:
+    """Host-side layout from the frozen conprbs (the .ofg content,
+    EM.cpp:435-457 / Gibbs.cpp:101-137); tensors end on `device`."""
+    N = hits.n_reads
+    offs = hits.read_offsets.astype(np.int64)
+    sid = hits.sid.astype(np.int64)
+    cps, ncs = scale_conprbs(hits, log_conprb, log_ncp)
+    keep = np.isfinite(np.asarray(log_conprb, dtype=np.float64))
+    if hits.n_hits:
+        n_slots = np.add.reduceat(keep.astype(np.int64), offs[:-1])
+        n_slots[np.diff(offs) == 0] = 0
+    else:
+        n_slots = np.zeros(N, np.int64)
+    included = n_slots > 0
+
+    # each read's table-row span over its kept hits (rows of 128 sids)
+    hi = sid >> 7
+    if hits.n_hits:
+        r_min = np.minimum.reduceat(np.where(keep, hi, np.iinfo(np.int64).max),
+                                    offs[:-1])
+        r_max = np.maximum.reduceat(np.where(keep, hi, -1), offs[:-1])
+    else:
+        r_min = r_max = np.zeros(N, np.int64)
+
+    sizes = [1]
+    mx = int(n_slots.max()) if included.any() else 1
+    while sizes[-1] < mx:
+        sizes.append(sizes[-1] * 2)
+    if sizes[-1] > TILE_SLOTS:
+        raise ValueError(f"a read has {mx} kept alignments; at most "
+                         f"{TILE_SLOTS} fit a Gibbs tile")
+    bucket_of = np.searchsorted(np.asarray(sizes), n_slots)
+    keep_pos = np.flatnonzero(keep)
+    kept_offs = np.concatenate([[0], np.cumsum(n_slots)])
+
+    parts: List[GibbsPart] = []
+    for bi, K in enumerate(sizes):
+        rsel = np.flatnonzero(included & (bucket_of == bi))
+        if len(rsel) == 0:
+            continue
+        # narrow reads first, by window start; wide reads trail
+        wide = (r_max[rsel] - r_min[rsel]) >= R_WIN
+        rsel = rsel[np.lexsort((r_min[rsel], wide))]
+        n_k = len(rsel)
+        rpt = TILE_SLOTS // K
+        n_tiles = -(-n_k // rpt)
+        n_rows = n_tiles * rpt
+
+        nh_sel = n_slots[rsel]
+        tot = int(nh_sel.sum())
+        cols = np.arange(tot) - np.repeat(np.cumsum(nh_sel) - nh_sel, nh_sel)
+        rows_idx = np.repeat(np.arange(n_k), nh_sel)
+        src = keep_pos[np.repeat(kept_offs[rsel], nh_sel) + cols]
+        sid_m = np.zeros((n_rows, K), dtype=np.int32)
+        cps_m = np.zeros((n_rows, K), dtype=np.float32)
+        ncs_m = np.zeros(n_rows, dtype=np.float32)
+        sid_m[rows_idx, cols] = sid[src]
+        cps_m[rows_idx, cols] = cps[src]
+        ncs_m[:n_k] = ncs[rsel]
+
+        bounds = np.arange(n_tiles) * rpt
+        w_lo_t = np.minimum.reduceat(r_min[rsel], bounds)
+        w_hi_t = np.maximum.reduceat(r_max[rsel], bounds)
+        # padding slots (cps 0) carry an in-window sid, as on the TPU
+        pad_sid = np.maximum(w_lo_t * 128, 1).astype(np.int32)
+        sid_t3 = np.where(cps_m.reshape(n_tiles, rpt, K) > 0,
+                          sid_m.reshape(n_tiles, rpt, K),
+                          pad_sid[:, None, None])
+        cps_t3 = cps_m.reshape(n_tiles, rpt, K)
+        ncs_t2 = ncs_m.reshape(n_tiles, rpt)
+        is_global = (w_hi_t - w_lo_t) >= R_WIN
+        real_t = np.minimum(n_k - bounds, rpt)  # reads in each tile
+        for wfull in (False, True):
+            tsel = np.flatnonzero(is_global == wfull)
+            if len(tsel) == 0:
+                continue
+            parts.append(GibbsPart(
+                sid=torch.as_tensor(np.ascontiguousarray(
+                    sid_t3[tsel].reshape(-1))).to(device),
+                cps=torch.as_tensor(np.ascontiguousarray(
+                    cps_t3[tsel].reshape(-1))).to(device),
+                ncs=torch.as_tensor(np.ascontiguousarray(
+                    ncs_t2[tsel].reshape(-1))).to(device),
+                K=K, n_tiles=len(tsel), n_real=int(real_t[tsel].sum())))
+    return GibbsLayout(parts, M, int(included.sum()), int(N - included.sum()))
+
+
+# ------------------------------------------------------------------ #
+# counter-hash uniforms (pallas_gibbs.py:287-297, 440-460)           #
+# ------------------------------------------------------------------ #
+def mix32_int(h: int) -> int:
+    """murmur3 fmix32 on a Python int (mod 2^32, logical shifts)."""
+    h &= MASK32
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & MASK32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & MASK32
+    h ^= h >> 16
+    return h
+
+
+def _mul32(h: torch.Tensor, m: int) -> torch.Tensor:
+    """(h * m) mod 2^32 for int64 h < 2^32, without leaving int64."""
+    return (h * (m & 0xFFFF) + (((h * (m >> 16)) & 0xFFFF) << 16)) & MASK32
+
+
+def mix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 on int64 tensors holding uint32 values."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def part_seed(seed: int, part_index: int) -> int:
+    """uint32 seed of part `part_index` (engine/gibbs.py:354-361)."""
+    return (int(seed) * 2654435761 + (part_index + 1) * 40503) & MASK32
+
+
+def read_uniforms(seed_part: int, sweep: int, tile: int, C: int, K: int,
+                  device=None) -> torch.Tensor:
+    """[C, TILE_SLOTS // K] f32: the uniform (24 random bits) of every read
+    of a tile, keyed h + (c*64 + row)*128 + lane at the read's first slot,
+    h the hash of (part seed, sweep, tile)."""
+    h = mix32_int(seed_part + sweep * GOLDEN + tile * TILE_MUL)
+    c = torch.arange(C, dtype=torch.int64, device=device)[:, None]
+    r = torch.arange(TILE_SLOTS // K, dtype=torch.int64, device=device)
+    k = (h + c * TILE_SLOTS + r[None, :] * K) & MASK32
+    bits = (mix32(mix32(k)) >> 7) & 0xFFFFFF
+    return bits.to(torch.float32) * (1.0 / (1 << 24))
+
+
+# ------------------------------------------------------------------ #
+# group reductions in the TPU kernel's order (pallas_gibbs.py:313-368)
+# ------------------------------------------------------------------ #
+def _group_sum(w: torch.Tensor) -> torch.Tensor:
+    """XOR-butterfly sum over the last axis (K slots): x + x[j ^ s] for
+    s = 1, 2, ..., K/2 — the pairwise tree of the TPU's lane-then-row
+    butterfly. Every slot ends with the same value."""
+    K = w.shape[-1]
+    j = torch.arange(K, device=w.device)
+    s = 1
+    while s < K:
+        w = w + w.index_select(-1, j ^ s)
+        s *= 2
+    return w
+
+
+def _hillis_steele(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Inclusive Hillis-Steele prefix over the last axis of length width."""
+    j = torch.arange(width, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    s = 1
+    while s < width:
+        sh = x.index_select(-1, (j - s).clamp(min=0))
+        x = x + torch.where(j >= s, sh, zero)
+        s *= 2
+    return x
+
+
+def _group_prefix(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix over the last axis (K slots) in the TPU order:
+    Hillis-Steele within each 128-slot row, then (K > 128) a Hillis-Steele
+    over the row totals, added back as (acc - row total)."""
+    K = w.shape[-1]
+    if K <= LANES:
+        return _hillis_steele(w, K)
+    shape = w.shape
+    x = _hillis_steele(w.reshape(*shape[:-1], K // LANES, LANES), LANES)
+    rt = x[..., LANES - 1:]  # [..., rows, 1]
+    acc = _hillis_steele(rt.transpose(-1, -2), K // LANES).transpose(-1, -2)
+    return (x + (acc - rt)).reshape(shape)
+
+
+# ------------------------------------------------------------------ #
+# the sweep                                                          #
+# ------------------------------------------------------------------ #
+def _check_state(assign: torch.Tensor, table: torch.Tensor,
+                 part: GibbsPart) -> None:
+    if assign.dtype != torch.int32 or assign.dim() != 2 or \
+            not assign.is_contiguous():
+        raise ValueError("assign must be a contiguous [C, n_reads] int32")
+    if assign.shape[1] != part.n_reads:
+        raise ValueError(f"assign has {assign.shape[1]} reads, the part "
+                         f"{part.n_reads}")
+    if table.dtype != torch.float32 or table.dim() != 2 or \
+            not table.is_contiguous() or table.shape[0] != assign.shape[0]:
+        raise ValueError("table must be a contiguous [C, M+1] float32")
+    for t in (table, part.sid, part.cps, part.ncs):
+        if t.device != assign.device:
+            raise ValueError("assign, table and the part must share a device")
+
+
+def sweep_part_plain(assign: torch.Tensor, table: torch.Tensor,
+                     part: GibbsPart, seed_part: int, sweep: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: vectorised over the reads of a tile
+    and the chains, looping over tiles. Updates assign and table in place."""
+    C = assign.shape[0]
+    K, rpt = part.K, part.reads_per_tile
+    dev = table.device
+    j = torch.arange(K, device=dev)
+    minus1 = torch.full((), -1, dtype=torch.int64, device=dev)
+    for t in range(part.n_tiles):
+        sid = part.sid[t * TILE_SLOTS:(t + 1) * TILE_SLOTS].long().view(
+            rpt, K)
+        cps = part.cps[t * TILE_SLOTS:(t + 1) * TILE_SLOTS].view(rpt, K)
+        ncs = part.ncs[t * rpt:(t + 1) * rpt]
+        a = assign[:, t * rpt:(t + 1) * rpt].long()  # [C, rpt]
+        has = a >= 0
+        sid_c = sid.expand(C, rpt, K)
+        cur = sid_c.gather(2, a.clamp(min=0)[..., None])[..., 0]
+        own = ((sid_c == cur[..., None]) & has[..., None]).to(torch.float32)
+        cg = table.gather(1, sid.reshape(1, -1).expand(C, -1)).view(C, rpt,
+                                                                    K)
+        w = (cg - own).clamp_min(0.0) * cps
+        own0 = 1.0 - has.to(torch.float32)
+        w0 = (table[:, :1] - own0).clamp_min(0.0) * ncs  # [C, rpt]
+        tot = _group_sum(w)[..., 0]
+        pre = _group_prefix(w)
+        u = read_uniforms(seed_part, sweep, t, C, K, dev)
+        target = u * (tot + w0)
+        pick_noise = target < w0
+        t2 = target - w0
+        lastv = torch.where(w > 0, j, minus1).amax(-1)
+        chosen = torch.where(pre > t2[..., None], j, lastv[..., None]).amin(
+            -1)
+        new = torch.where(~pick_noise & (chosen >= 0), chosen, minus1)
+        # the tile's deltas: summed per sid first (integers, exact), then
+        # one add per table entry, as the TPU's one-hot contraction does
+        moved = new != a
+        net = torch.zeros(table.shape, dtype=torch.int64, device=dev)
+        old_on = moved & has
+        new_on = moved & (new >= 0)
+        net.scatter_add_(1, cur, -old_on.long())
+        net.scatter_add_(1, sid_c.gather(2, new.clamp(min=0)[..., None])[
+            ..., 0], new_on.long())
+        table += net.to(torch.float32)
+        dn = new_on.long().sum(1) - old_on.long().sum(1)
+        table[:, 0] -= dn.to(torch.float32)
+        assign[:, t * rpt:(t + 1) * rpt] = new.to(torch.int32)
+    return assign, table
+
+
+def sweep_part(assign: torch.Tensor, table: torch.Tensor, part: GibbsPart,
+               seed_part: int, sweep: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sweep over a part's tiles for every chain (K5), IN PLACE.
+
+    assign: [C, part.n_reads] int32 slot of each read (-1 = noise);
+    table: [C, M+1] f32 counts + pseudo-counts (index 0 = noise);
+    seed_part: uint32 part seed; sweep: global sweep index."""
+    _check_state(assign, table, part)
+    if assign.device.type == "cpu":
+        return sweep_part_plain(assign, table, part, seed_part, sweep)
+    if assign.device.type != "cuda":
+        raise ValueError(f"unsupported device {assign.device}")
+    C, T = table.shape
+    scratch = torch.zeros((C, T), dtype=torch.int32, device=table.device)
+    _build.check(_build.lib().rsem_gibbs_sweep(
+        part.sid.data_ptr(), part.cps.data_ptr(), part.ncs.data_ptr(),
+        assign.data_ptr(), table.data_ptr(), scratch.data_ptr(),
+        part.n_tiles, part.K.bit_length() - 1, C, assign.shape[1], T,
+        seed_part & MASK32, sweep & MASK32, _build.stream_of(table)),
+        "gibbs_sweep")
+    sweep_part.launches += 1
+    return assign, table
+
+
+sweep_part.launches = 0
+
+
+# ------------------------------------------------------------------ #
+# chain initialisation (pallas_gibbs.py:568-632)                     #
+# ------------------------------------------------------------------ #
+def init_chains(layout: GibbsLayout, table_base: torch.Tensor,
+                n_chains: int, seed: int, device=None
+                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Initial assignments z ~ conprb (Gibbs.cpp:281-291), a Gumbel-max pick
+    over [noise, slots] per read, plus the chains' count tables.
+
+    The draws come from a CPU torch.Generator seeded with `seed`, so the
+    initial state is the same whichever device the chains then run on.
+    table_base: [M+1] f32 = init counts + pseudo, with [0] += N0 +
+    n_noise_fixed. Returns (assign per part [C, n_reads] int32, tables
+    [C, M+1] f32), both on `device`."""
+    C = n_chains
+    gen = torch.Generator().manual_seed(int(seed))
+    counts = torch.zeros((C, table_base.shape[0]), dtype=torch.float64)
+    assigns = []
+    for part in layout.parts:
+        K, nr = part.K, part.n_reads
+        cps = part.cps.cpu().view(nr, K)
+        ncs = part.ncs.cpu()
+        logits = torch.cat([ncs[:, None], cps], 1).log()  # 0 -> -inf
+        valid = torch.isfinite(logits).any(1)
+        u = torch.rand((C, nr, K + 1), generator=gen).clamp_min(1e-30)
+        pick = (logits - (-u.log()).log()).argmax(2)  # [C, nr]
+        a = torch.where(valid & (pick > 0), pick - 1,
+                        torch.full_like(pick, -1))
+        assigns.append(a.to(torch.int32).to(device))
+        on = a >= 0
+        sids = part.sid.cpu().long().view(nr, K).expand(C, nr, K).gather(
+            2, a.clamp(min=0)[..., None])[..., 0]
+        counts.scatter_add_(1, sids, on.double())
+        counts[:, 0] += float(valid.sum()) - on.sum(1).double()
+    tables = table_base.cpu()[None, :] + counts.to(torch.float32)
+    return assigns, tables.contiguous().to(device)

@@ -1,16 +1,17 @@
 """The quantification driver (rsem-calculate-expression equivalent).
 
-Counterpart of rsem_tpu/pipeline/calculate_expression.py, default path
-(:166-430 and :455-540 there): transcript alignments (SAM/BAM) -> model
-estimation -> EM on the device -> results tables -> transcript BAM.
-Interop artifacts (.cnt/.model/.theta/.mparams, .ofg with
---keep-intermediate-files) are written under sample_name.stat/ and
-sample_name.temp/ as the reference does.
+Counterpart of rsem_tpu/pipeline/calculate_expression.py (:166-430 and
+:455-540 there): transcript alignments (SAM/BAM) -> model estimation -> EM
+on the device -> optionally the collapsed Gibbs sampler (--calc-pme) and
+credibility intervals (--calc-ci) on the device -> results tables ->
+transcript BAM. Interop artifacts (.cnt/.model/.theta/.mparams; .ofg and
+.countvectors with --keep-intermediate-files) are written under
+sample_name.stat/ and sample_name.temp/ as the reference does.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: --calc-pme and pRSEM (A9), --calc-ci (A10), and (posterior BAM
-options, aligner runs, allele references) --output-genome-bam, the BAM
-sort flags, running an aligner and allele-specific references.
+item: pRSEM, and (posterior BAM options, aligner runs, allele references)
+--output-genome-bam, the BAM sort flags, running an aligner and
+allele-specific references.
 """
 
 from __future__ import annotations
@@ -26,10 +27,16 @@ from typing import Optional
 import numpy as np
 
 from ..constants import DEFAULT_SEED_LEN
+from ..engine.ci import CIConfig, run_ci
 from ..engine.em import EMConfig, run_em, write_theta_file
+from ..engine.gibbs import GibbsConfig, run_gibbs
 from ..io import parse_alignments
 from ..io.bam_writer import write_transcript_bam
 from ..io.results import (
+    GENE_TITLE_CI,
+    GENE_TITLE_PME,
+    ISO_TITLE_CI,
+    ISO_TITLE_PME,
     gene_level_values,
     write_gene_results,
     write_isoform_results,
@@ -58,9 +65,17 @@ class ExpressionConfig:
     fragment_length_sd: float = 0.0
     estimate_rspd: bool = False
     num_rspd_bins: int = 20
-    # not ported yet (raise)
+    # posterior
     calc_pme: bool = False
     calc_ci: bool = False
+    gibbs_burnin: int = 200
+    gibbs_number_of_samples: int = 1000
+    gibbs_sampling_gap: int = 1
+    gibbs_chains: int = 8
+    ci_credibility_level: float = 0.95
+    ci_number_of_samples_per_count_vector: int = 50
+    single_cell_prior: bool = False
+    # not ported yet (raise)
     run_prsem: bool = False
     output_genome_bam: bool = False
     sort_bam_by_coordinate: bool = False
@@ -90,14 +105,14 @@ class ExpressionConfig:
 @dataclass
 class ExpressionResult:
     em: object
+    gibbs: Optional[object] = None
+    ci: Optional[object] = None
     cnt: Optional[object] = None
 
 
 _BAM_ITEM = "posterior BAM options, aligner runs, allele references"
 _NOT_PORTED = (
-    ("calc_pme", "--calc-pme", "A9 (Gibbs with kernel K5)"),
-    ("run_prsem", "--run-pRSEM", "A9 (Gibbs with kernel K5)"),
-    ("calc_ci", "--calc-ci", "A10 (credibility intervals)"),
+    ("run_prsem", "--run-pRSEM", "pRSEM on the ported Gibbs sampler"),
     ("output_genome_bam", "--output-genome-bam", _BAM_ITEM),
     ("sort_bam_by_coordinate", "--sort-bam-by-coordinate", _BAM_ITEM),
     ("sort_bam_by_read_name", "--sort-bam-by-read-name", _BAM_ITEM),
@@ -109,6 +124,14 @@ def _stage_seeds(seed: Optional[int]):
         return [None, None, None]
     rng = np.random.RandomState(seed)
     return [int(x) for x in rng.randint(0, 2**31, size=3)]
+
+
+def _pct(num: np.ndarray, denom: np.ndarray) -> np.ndarray:
+    """num/denom*100 where denom >= EPSILON, else 0 (WriteResults.h:383+)."""
+    out = np.zeros_like(np.asarray(num, dtype=np.float64))
+    ok = denom >= 1e-300
+    out[ok] = num[ok] / denom[ok] * 100.0
+    return out
 
 
 def _refuse_unported(cfg: ExpressionConfig, reference_name: str) -> None:
@@ -131,8 +154,8 @@ def calculate_expression(
     cfg: Optional[ExpressionConfig] = None,
     device: DeviceLike = None,
 ) -> ExpressionResult:
-    """alignments: SAM/BAM of transcript alignments. Runs the EM on CUDA
-    unless device="cpu" is given."""
+    """alignments: SAM/BAM of transcript alignments. Runs the EM (and Gibbs
+    and CI when asked for) on CUDA unless device="cpu" is given."""
     cfg = cfg or ExpressionConfig()
     dev = resolve_device(device)
     _refuse_unported(cfg, reference_name)
@@ -189,7 +212,9 @@ def calculate_expression(
         raise RuntimeError("No alignable reads; nothing to estimate.")
 
     # ---- EM ----
-    need_posteriors = (not cfg.no_bam_output) or cfg.keep_intermediate_files
+    posterior = cfg.calc_pme or cfg.calc_ci
+    need_posteriors = ((not cfg.no_bam_output) or cfg.keep_intermediate_files
+                       or posterior)
     with timer.stage("em"), maybe_profile(cfg.profile_dir):
         model = GenerativeModel(spec, ref)
         model.estimate_from_stats(bundle.stats)
@@ -206,20 +231,82 @@ def calculate_expression(
         write_ofg(f"{imd}.ofg", ref.M, bundle.cnt.N0, bundle.hits,
                   em.log_conprb, em.log_ncp)
 
-    # ---- final tables ----
     tlens = ts.lengths()
     gl = gene_level_values(gi, tlens, em.eel, em.counts, em.tpm, em.fpkm)
+    iso_extra, gene_extra = [], []
+    seeds = _stage_seeds(cfg.seed)
+    pseudo_count = 0.1 if cfg.single_cell_prior else 1.0
+
+    # ---- Gibbs (--calc-pme / --calc-ci) ----
+    gres = cires = None
+    if posterior:
+        gcfg = GibbsConfig(
+            burnin=cfg.gibbs_burnin,
+            nsamples=cfg.gibbs_number_of_samples,
+            gap=cfg.gibbs_sampling_gap,
+            n_chains=cfg.gibbs_chains,
+            pseudo_count=pseudo_count,
+            seed=seeds[1] if seeds[1] is not None else 0,
+            keep_countvectors=cfg.calc_ci or cfg.keep_intermediate_files,
+        )
+        with timer.stage("gibbs"):
+            gres = run_gibbs(
+                bundle.hits, em.log_conprb, em.log_ncp, ref.M, bundle.cnt.N0,
+                em.eel, model.mw, gi, gcfg, omit=bundle.omit, device=dev,
+            )
+        if cfg.keep_intermediate_files:
+            from ..io.ofg import write_countvectors
+
+            # Gibbs.cpp:255-262 (one file; the reference writes one per
+            # thread and calcCI globs them)
+            write_countvectors(f"{imd}.countvectors",
+                               gres.countvectors.cpu().numpy())
+        sid2g = sid2gid[1:]
+        gene_pme_c = np.bincount(sid2g, weights=gres.pme_c[1:],
+                                 minlength=gi.m)
+        gene_pme_tpm = np.bincount(sid2g, weights=gres.pme_tpm[1:],
+                                   minlength=gi.m)
+        gene_pme_fpkm = np.bincount(sid2g, weights=gres.pme_fpkm[1:],
+                                    minlength=gi.m)
+        gene_extra.append((GENE_TITLE_PME, np.stack(
+            [gene_pme_c, np.sqrt(gres.pve_c_genes), gene_pme_tpm,
+             gene_pme_fpkm])))
+        isopct_pme = _pct(gres.pme_tpm[1:], gene_pme_tpm[sid2g])
+        iso_extra.append((ISO_TITLE_PME, np.stack(
+            [gres.pme_c, np.sqrt(gres.pve_c), gres.pme_tpm, gres.pme_fpkm,
+             np.concatenate([[0.0], isopct_pme])])))
+
+    # ---- credibility intervals (--calc-ci) ----
+    if cfg.calc_ci:
+        cicfg = CIConfig(
+            confidence=cfg.ci_credibility_level,
+            nspc=cfg.ci_number_of_samples_per_count_vector,
+            pseudo_count=pseudo_count,
+            seed=seeds[2] if seeds[2] is not None else 0,
+        )
+        with timer.stage("ci"):
+            cires = run_ci(gres.countvectors, em.eel, model.mw, gi, cicfg,
+                           device=dev)
+        iso_extra.append((ISO_TITLE_CI, np.stack(
+            [cires.tpm.lb, cires.tpm.ub, cires.tpm.cqv, cires.fpkm.lb,
+             cires.fpkm.ub, cires.fpkm.cqv])))
+        gene_extra.append((GENE_TITLE_CI, np.stack(
+            [cires.gene_tpm.lb, cires.gene_tpm.ub, cires.gene_tpm.cqv,
+             cires.gene_fpkm.lb, cires.gene_fpkm.ub, cires.gene_fpkm.cqv])))
+
+    # ---- final tables ----
     write_isoform_results(
         f"{sample_name}.isoforms.results", ts, tlens, em.eel, em.counts,
-        em.tpm, em.fpkm, gl.isopct, cfg.append_names, [],
+        em.tpm, em.fpkm, gl.isopct, cfg.append_names, iso_extra,
     )
     write_gene_results(
-        f"{sample_name}.genes.results", ts, gi, gl, cfg.append_names, []
+        f"{sample_name}.genes.results", ts, gi, gl, cfg.append_names,
+        gene_extra,
     )
 
     # ---- posterior-weighted BAM output ----
     if not cfg.no_bam_output:
-        seed0 = _stage_seeds(cfg.seed)[0]
+        seed0 = seeds[0]
         with timer.stage("bam-output"):
             write_transcript_bam(
                 alignments, f"{sample_name}.transcript.bam", bundle.hits,
@@ -237,7 +324,7 @@ def calculate_expression(
             f"({em.rounds} EM rounds, device {dev}). Stage breakdown:"
         )
         timer.report(log=print, n_reads=bundle.cnt.n_tot)
-    return ExpressionResult(em=em, cnt=bundle.cnt)
+    return ExpressionResult(em=em, gibbs=gres, ci=cires, cnt=bundle.cnt)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -279,6 +366,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-rspd-bins", type=int, default=20)
     p.add_argument("--calc-pme", action="store_true")
     p.add_argument("--calc-ci", action="store_true")
+    p.add_argument("--gibbs-burnin", type=int, default=200)
+    p.add_argument("--gibbs-number-of-samples", type=int, default=1000)
+    p.add_argument("--gibbs-sampling-gap", type=int, default=1)
+    p.add_argument("--gibbs-chains", type=int, default=8,
+                   help="independent Gibbs chains (the reference's -p "
+                   "threads); must divide --gibbs-number-of-samples")
+    p.add_argument("--ci-credibility-level", type=float, default=0.95)
+    p.add_argument("--ci-number-of-samples-per-count-vector", type=int,
+                   default=50)
+    p.add_argument("--single-cell-prior", action="store_true")
     p.add_argument("--run-pRSEM", dest="run_prsem", action="store_true")
     p.add_argument("--no-bam-output", action="store_true")
     p.add_argument("--sampling-for-bam", action="store_true")
@@ -337,6 +434,14 @@ def main(argv=None) -> int:
         num_rspd_bins=args.num_rspd_bins,
         calc_pme=args.calc_pme,
         calc_ci=args.calc_ci,
+        gibbs_burnin=args.gibbs_burnin,
+        gibbs_number_of_samples=args.gibbs_number_of_samples,
+        gibbs_sampling_gap=args.gibbs_sampling_gap,
+        gibbs_chains=args.gibbs_chains,
+        ci_credibility_level=args.ci_credibility_level,
+        ci_number_of_samples_per_count_vector=(
+            args.ci_number_of_samples_per_count_vector),
+        single_cell_prior=args.single_cell_prior,
         run_prsem=args.run_prsem,
         output_genome_bam=args.output_genome_bam,
         sort_bam_by_coordinate=args.sort_bam_by_coordinate,

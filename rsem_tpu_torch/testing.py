@@ -250,3 +250,35 @@ def synthetic_dataset(
     model = GenerativeModel(spec, ref)
     model.estimate_from_stats(stats)
     return ref, bundle, spec, model
+
+
+def synthetic_gibbs_hits(N: int, M: int, seed: int, max_hits: int,
+                         min_hits: int = 1):
+    """(HitArrays, log_conprb [H], log_ncp [N]) for the Gibbs sampler: N
+    reads of min_hits..max_hits alignments around a known uneven theta,
+    with duplicate sids inside a read as real parsers give (the generator
+    of tests/test_pallas_gibbs.py:15-49)."""
+    rng = np.random.default_rng(seed)
+    theta = rng.dirichlet(np.full(M, 0.4))
+    nh = rng.integers(min_hits, max_hits + 1, size=N)
+    offs = np.concatenate([[0], np.cumsum(nh)])
+    H = int(offs[-1])
+    sid = np.empty(H, dtype=np.int32)
+    lcp = np.empty(H)
+    for i in range(N):
+        true = rng.choice(M, p=theta) + 1
+        cands = np.unique(
+            np.concatenate([[true], rng.integers(1, M + 1, nh[i] - 1)]))
+        cands = cands[: nh[i]]
+        k = len(cands)
+        sid[offs[i]: offs[i] + k] = cands
+        lcp[offs[i]: offs[i] + k] = rng.normal(-20, 2, k)
+        for j in range(k, nh[i]):
+            sid[offs[i] + j] = cands[j % k]
+            lcp[offs[i] + j] = rng.normal(-21, 2)
+    lnp = rng.normal(-40, 3, N)
+    hits = HitArrays(rid=np.repeat(np.arange(N, dtype=np.int32), nh),
+                     sid=sid, dir=np.zeros(H, dtype=np.int8),
+                     pos=np.zeros(H, dtype=np.int32), insert_len=None,
+                     read_offsets=offs.astype(np.int64))
+    return hits, lcp, lnp

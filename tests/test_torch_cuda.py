@@ -7,7 +7,9 @@ machine (which has no JAX, so the JAX conftest is not loaded):
 Covers the branches the full-width smoke run does not reach: tables too
 large for the shared-memory copy (gather) or needing the opt-in shared
 memory (scatter), 256-column rows, empty inputs, reads of up to 200 hits
-in the theta round, and PreIdx for paired and quality-less reads."""
+in the theta round, PreIdx for paired and quality-less reads, and the
+Gibbs sweep (K5) at read widths from 1 to 256 slots, one and eight chains;
+plus run_gibbs and run_ci on the card against the CPU and the goldens."""
 
 import numpy as np
 import pytest
@@ -16,9 +18,13 @@ import torch
 from rsem_tpu_torch.convert import model_arrays_to_torch
 from rsem_tpu_torch.engine import em
 from rsem_tpu_torch.io.hits import HitArrays
-from rsem_tpu_torch.ops import conprb, table, theta
+from rsem_tpu_torch.ops import conprb, gibbs, table, theta
 from rsem_tpu_torch.ops.layout import HitsDevice
-from rsem_tpu_torch.testing import synthetic_arrays_fast, synthetic_dataset
+from rsem_tpu_torch.testing import (
+    synthetic_arrays_fast,
+    synthetic_dataset,
+    synthetic_gibbs_hits,
+)
 
 pytestmark = pytest.mark.cuda
 CPU = torch.device("cpu")
@@ -154,3 +160,106 @@ def test_run_em_cuda_matches_cpu(dev, paired):
     np.testing.assert_allclose(g.counts, c.counts, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(g.tpm, c.tpm, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(g.frac_hit, c.frac_hit, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_chains", [1, 8])
+@pytest.mark.parametrize("K", [1, 4, 32, 64, 256])
+def test_gibbs_sweep_matches_plain(dev, K, n_chains):
+    """K5 against sweep_part_plain on the card and on the CPU, exact, over
+    two sweeps: several tiles per part, window and full-table parts (K=1,
+    M=5000), fractional pseudo-counts, an omitted sid, and reads whose noise
+    slot competes with their hits."""
+    lo = K // 2 + 1 if K > 1 else 1
+    N = {1: 20000, 4: 5000, 32: 800, 64: 400, 256: 100}[K]
+    M = 5000 if K == 1 else 300
+    hits, lcp, lnp = synthetic_gibbs_hits(N, M, seed=K, max_hits=K,
+                                          min_hits=lo)
+    lnp[::3] = -20.0
+    layout = gibbs.build_layout(hits, lcp, lnp, M)
+    assert {p.K for p in layout.parts} == {K}
+    base = torch.full((M + 1,), 0.1)
+    base[17] = -0.9  # omitted
+    base[0] += 5.0
+    assigns, tab = gibbs.init_chains(layout, base, n_chains, seed=3)
+    lay_g = layout.to(dev)
+    a_g = [a.to(dev) for a in assigns]
+    a_p = [a.to(dev) for a in assigns]
+    t_g, t_p = tab.to(dev), tab.to(dev)
+    n0 = gibbs.sweep_part.launches
+    for sweep in range(2):
+        for pi, part in enumerate(layout.parts):
+            sp = gibbs.part_seed(11, pi)
+            gibbs.sweep_part(a_g[pi], t_g, lay_g.parts[pi], sp, sweep)
+            gibbs.sweep_part_plain(a_p[pi], t_p, lay_g.parts[pi], sp, sweep)
+            gibbs.sweep_part(assigns[pi], tab, part, sp, sweep)
+    torch.cuda.synchronize()
+    assert gibbs.sweep_part.launches == n0 + 2 * len(layout.parts)
+    for g, p, c in zip(a_g, a_p, assigns):
+        assert torch.equal(g.cpu(), p.cpu()) and torch.equal(g.cpu(), c)
+    assert torch.equal(t_g.cpu(), t_p.cpu()) and torch.equal(t_g.cpu(), tab)
+    assert sum(int((a >= 0).sum()) for a in assigns) > 0
+
+
+def test_gibbs_sweep_checks_inputs(dev):
+    hits, lcp, lnp = synthetic_gibbs_hits(50, 20, seed=0, max_hits=2)
+    layout = gibbs.build_layout(hits, lcp, lnp, 20, device=dev)
+    part = layout.parts[0]
+    a = torch.zeros((2, part.n_reads), dtype=torch.int32, device=dev)
+    t = torch.ones((2, 21), device=dev)
+    with pytest.raises(ValueError):
+        gibbs.sweep_part(a.long(), t, part, 1, 0)
+    with pytest.raises(ValueError):
+        gibbs.sweep_part(a[:, :-1].contiguous(), t, part, 1, 0)
+    with pytest.raises(ValueError):
+        gibbs.sweep_part(a, t.cpu(), part, 1, 0)
+
+
+def test_run_gibbs_cuda_matches_cpu(dev):
+    """One seed, one initial state (drawn on the host): identical count
+    vectors from the kernel and from the plain version."""
+    from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
+
+    M = 200
+    hits, lcp, lnp = synthetic_gibbs_hits(3000, M, seed=5, max_hits=20)
+    eel, mw = np.full(M + 1, 150.0), np.ones(M + 1)
+    gi = GroupInfo(np.concatenate([np.arange(1, M + 1, 4), [M + 1]]))
+    cfg = GibbsConfig(burnin=20, nsamples=80, n_chains=8, seed=3)
+    g = run_gibbs(hits, lcp, lnp, M, 30, eel, mw, gi, cfg, device=dev)
+    c = run_gibbs(hits, lcp, lnp, M, 30, eel, mw, gi, cfg, device="cpu")
+    assert torch.equal(g.countvectors.cpu(), c.countvectors)
+    np.testing.assert_allclose(g.pme_c, c.pme_c, rtol=1e-12)
+    np.testing.assert_allclose(g.pme_tpm, c.pme_tpm, rtol=1e-5)
+
+
+def test_run_ci_cuda_on_reference_countvectors(dev):
+    """run_ci on the card, on reference calcCI's count vectors, at the
+    tolerances of tests/test_parity_extra.py:169-186."""
+    import gzip
+    import os
+
+    from rsem_tpu_torch.engine.ci import CIConfig, run_ci
+    from rsem_tpu_torch.model.generative import GenerativeModel
+    from rsem_tpu_torch.refprep.reference import Reference
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
+
+    gold = os.path.join(os.path.dirname(__file__), "goldens")
+    cvs = np.loadtxt(gzip.open(f"{gold}/golden.countvectors.gz", "rt"))
+    refs = Reference.load_seq(f"{gold}/ref.seq")
+    model = GenerativeModel.read(f"{gold}/golden.model", refs=refs)
+    gi = GroupInfo.load(f"{gold}/ref.grp")
+    res = run_ci(cvs, model.calc_eel(), model.mw, gi,
+                 CIConfig(confidence=0.95, nspc=50, seed=99), device=dev)
+    rows = [l.rstrip("\n").split("\t")
+            for l in open(f"{gold}/golden_ci.isoforms.results")]
+    hdr = rows[0]
+    i_lb, i_ub = hdr.index("TPM_ci_lower_bound"), hdr.index(
+        "TPM_ci_upper_bound")
+    i_cqv = hdr.index("TPM_coefficient_of_quartile_variation")
+    for k, r in enumerate(rows[1:]):
+        g_lb, g_ub = float(r[i_lb]), float(r[i_ub])
+        width = max(g_ub - g_lb, 1.0)
+        assert abs(res.tpm.lb[k + 1] - g_lb) < 0.12 * width + 0.5, r[0]
+        assert abs(res.tpm.ub[k + 1] - g_ub) < 0.12 * width + 0.5, r[0]
+        assert res.tpm.cqv[k + 1] == pytest.approx(float(r[i_cqv]),
+                                                   abs=0.03, rel=0.12)

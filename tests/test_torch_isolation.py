@@ -78,19 +78,30 @@ def _tiny():
 
 
 def test_entry_points_refuse_missing_cuda(tmp_path):
-    """With no CUDA and no explicit device="cpu", run_em and
-    calculate_expression raise instead of running on the CPU; the kernel
+    """With no CUDA and no explicit device="cpu", run_em, run_gibbs, run_ci
+    and calculate_expression raise instead of running on the CPU; the kernel
     wrappers never take their plain version for a CUDA tensor."""
     if torch.cuda.is_available():
         pytest.skip("this check is about machines without CUDA")
+    from rsem_tpu_torch.engine.ci import CIConfig, run_ci
     from rsem_tpu_torch.engine.em import run_em
+    from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
     from rsem_tpu_torch.pipeline.calculate_expression import (
         calculate_expression,
     )
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
 
     ref, bundle, _spec, model = _tiny()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_em(model, ref, bundle)
+    M, gi = ref.M, GroupInfo(np.arange(1, ref.M + 2))
+    ones = np.ones(M + 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_gibbs(bundle.hits, np.zeros(bundle.hits.n_hits),
+                  np.zeros(bundle.hits.n_reads), M, 0, ones, ones, gi,
+                  GibbsConfig(burnin=1, nsamples=8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_ci(np.ones((4, M + 1)), ones, ones, gi, CIConfig(nspc=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calculate_expression(str(tmp_path / "x.sam"), str(tmp_path / "ref"),
                              str(tmp_path / "out"))
@@ -107,8 +118,8 @@ def test_unported_options_raise(tmp_path):
         calculate_expression,
     )
 
-    for flag in ("calc_pme", "calc_ci", "run_prsem", "output_genome_bam",
-                 "sort_bam_by_coordinate", "sort_bam_by_read_name"):
+    for flag in ("run_prsem", "output_genome_bam", "sort_bam_by_coordinate",
+                 "sort_bam_by_read_name"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             calculate_expression("x.sam", str(tmp_path / "ref"),
                                  str(tmp_path / "o"),
@@ -122,10 +133,12 @@ def test_unported_options_raise(tmp_path):
 def test_cpu_wrappers_run_plain_versions():
     """On CPU tensors every kernel wrapper computes through its plain
     version and counts no launch."""
-    from rsem_tpu_torch.ops import conprb, table, theta
+    from rsem_tpu_torch.ops import conprb, gibbs, table, theta
+    from rsem_tpu_torch.testing import synthetic_gibbs_hits
 
     before = (table.gather_sum.launches, table.scatter_add.launches,
-              theta.theta_round.launches, conprb.preidx_flat.launches)
+              theta.theta_round.launches, conprb.preidx_flat.launches,
+              gibbs.sweep_part.launches)
     rng = np.random.default_rng(0)
     idx = torch.as_tensor(rng.integers(0, 11, size=(6, 8)), dtype=torch.int32)
     tab = table.padded_table(torch.arange(10, dtype=torch.float32), 10)
@@ -135,6 +148,18 @@ def test_cpu_wrappers_run_plain_versions():
     got = table.scatter_add(idx, w, 10).numpy()
     np.testing.assert_array_equal(got, np.bincount(
         idx.numpy().reshape(-1), minlength=11)[:10])
+    hits, lcp, lnp = synthetic_gibbs_hits(60, 12, seed=0, max_hits=3)
+    layout = gibbs.build_layout(hits, lcp, lnp, 12)
+    base = torch.ones(13)
+    assigns, tab_k = gibbs.init_chains(layout, base, 2, seed=1)
+    assigns_p = [a.clone() for a in assigns]
+    tab_p = tab_k.clone()
+    for pi, part in enumerate(layout.parts):
+        gibbs.sweep_part(assigns[pi], tab_k, part, 5, 0)
+        gibbs.sweep_part_plain(assigns_p[pi], tab_p, part, 5, 0)
+        assert torch.equal(assigns[pi], assigns_p[pi])
+    assert torch.equal(tab_k, tab_p)
     after = (table.gather_sum.launches, table.scatter_add.launches,
-             theta.theta_round.launches, conprb.preidx_flat.launches)
+             theta.theta_round.launches, conprb.preidx_flat.launches,
+             gibbs.sweep_part.launches)
     assert after == before
