@@ -28,9 +28,13 @@ non-zero on failure:
     stage wall times; every count vector sums to N0+N1, sum(pme TPM) =
     1e6, finite intervals with lb <= ub; then a warm run_gibbs + run_ci
     under torch.profiler as in phase 5.
- 7. hold K5 (Gibbs tile sweep) against its plain version on the layout of
-    that EM's conprbs: one initial state, 3 sweeps of 8 chains, identical
-    assignments and tables; time one sweep of each and the bound.
+ 7. hold K5 (Gibbs tile sweep) against its plain version, one initial
+    state, 3 sweeps of 8 chains, identical assignments and tables, on the
+    layout of that EM's conprbs (T = 20,001), on a mixing variant, and on
+    both relabelled s -> 10 s with the table widened to T = 200,001 (a
+    human transcriptome's size); time one sweep of each (>= 5 warm
+    samples), us per tile step, and the bound from the bytes this run's
+    data moves.
  8. calculate-expression through the CLI entry point on the golden SAMs
     (tests/goldens/aln.sam.gz; aln_pe.sam.gz with --paired-end
     --estimate-rspd), compared with the reference RSEM goldens at the
@@ -470,19 +474,21 @@ def phase_posterior(ref, bundle, model0, dev):
 
 def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
     """K5 against its plain version at full width, K5_SWEEPS sweeps of 8
-    chains from one initial state each way: on the posterior path's layout,
-    and on a mixing variant (the same alignments with conprbs drawn from a
-    seed, so reads move between alignments and noise; the workload's decoy
-    alignments have conprbs that underflow, which pins most reads). Then
-    one sweep's time. Returns the K5 row."""
+    chains from one initial state each way: on the posterior path's layout
+    (T = M+1 = 20,001), on a mixing variant (the same alignments with
+    conprbs drawn from a seed, so reads move between alignments and noise;
+    the workload's decoy alignments have conprbs that underflow, which pins
+    most reads), and on both relabelled s -> 10 s with the table widened to
+    T = 200,001. Then one sweep's time of each. Returns the K5 row."""
     import numpy as np
     import torch
 
     from rsem_tpu_torch.ops import gibbs
+    from rsem_tpu_torch.testing import relabel_layout
 
     M, C = ref.M, 8
 
-    def hold(lcp, lnp, label):
+    def setup(lcp, lnp, label):
         t0 = time.perf_counter()
         layout = gibbs.build_layout(bundle.hits, lcp, lnp, M, device=dev)
         t1 = time.perf_counter()
@@ -494,62 +500,112 @@ def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
             f"sweep, {layout.n_reads} reads, {layout.n_slots} slots; host "
             f"build {t1 - t0:.3f} s, chain init {time.perf_counter() - t1:.3f}"
             f" s")
+        return layout, assigns, tab
+
+    def hold(layout, assigns, tab, label):
+        """Identical to the plain version over K5_SWEEPS sweeps, one delta
+        scratch for all of them; returns the kernel's (median, min, max) ms
+        per sweep, the plain sweep, and the assignments and table entries
+        that one sweep changes (mean over the plain sweeps)."""
         seeds = [gibbs.part_seed(1, pi) for pi in range(len(layout.parts))]
         a_k = [a.clone() for a in assigns]
         a_p = [a.clone() for a in assigns]
         t_k, t_p = tab.clone(), tab.clone()
+        scratch = gibbs.delta_scratch(t_k)
+
+        def kern(a, t, part, sp, s):
+            gibbs.sweep_part(a, t, part, sp, s, scratch)
 
         def sweep(fn, a_s, t, s):
             for part, a, sp in zip(layout.parts, a_s, seeds):
                 fn(a, t, part, sp, s)
 
+        n0 = gibbs.sweep_part.launches
+        moved = changed = 0
         for s in range(K5_SWEEPS):
-            sweep(gibbs.sweep_part, a_k, t_k, s)
+            sweep(kern, a_k, t_k, s)
+            a_0, t_0 = [a.clone() for a in a_p], t_p.clone()
             sweep(gibbs.sweep_part_plain, a_p, t_p, s)
+            moved += sum(int((x != y).sum()) for x, y in zip(a_p, a_0))
+            changed += int((t_p != t_0).sum())
         torch.cuda.synchronize()
+        if gibbs.sweep_part.launches - n0 != K5_SWEEPS * len(layout.parts):
+            fail(f"K5 ({label}) launched {gibbs.sweep_part.launches - n0} "
+                 f"times, not {K5_SWEEPS * len(layout.parts)}")
         n_diff = sum(int((x != y).sum()) for x, y in zip(a_k, a_p))
-        if n_diff or not torch.equal(t_k, t_p):
+        if n_diff or not torch.equal(t_k, t_p) or bool(scratch.any()):
             fail(f"K5 ({label}) differs from its plain version after "
                  f"{K5_SWEEPS} sweeps: {n_diff} assignments, max table diff "
-                 f"{float((t_k - t_p).abs().max())}")
-        moved = sum(int((x != y).sum()) for x, y in zip(a_k, assigns))
-        log(f"K5 {label}: identical to the plain version over {K5_SWEEPS} "
-            f"sweeps x {C} chains ({moved} of {C * layout.n_reads} read "
-            f"assignments moved)")
-        k_ms = time_cuda(lambda: sweep(gibbs.sweep_part, a_k, t_k,
-                                       K5_SWEEPS))
-        return layout, k_ms, lambda: sweep(gibbs.sweep_part_plain, a_p, t_p,
-                                           K5_SWEEPS)
+                 f"{float((t_k - t_p).abs().max())}, scratch left non-zero "
+                 f"{bool(scratch.any())}")
+        k_ms = time_cuda(lambda: sweep(kern, a_k, t_k, K5_SWEEPS))
+        log(f"K5 {label} (T = {tab.shape[1]}): identical to the plain version"
+            f" over {K5_SWEEPS} sweeps x {C} chains ({moved} of "
+            f"{K5_SWEEPS * C * layout.n_reads} read assignments moved); "
+            f"{k_ms[0]:.3f} ms per sweep [{k_ms[1]:.3f}, {k_ms[2]:.3f}], "
+            f"{k_ms[0] * 1e3 / layout.n_tiles:.2f} us per tile step")
+        return (k_ms, lambda: sweep(gibbs.sweep_part_plain, a_p, t_p,
+                                    K5_SWEEPS),
+                moved / K5_SWEEPS, changed / K5_SWEEPS)
 
-    layout, k_ms, plain_sweep = hold(em.log_conprb, em.log_ncp, "EM conprbs")
+    def k5_bound(layout, moved, changed):
+        """Bytes of one sweep: each placed slot's sid and cps and each
+        read's ncs once; every chain's assignments read once and the ones
+        that move written; every chain's table entries that the layout
+        touches (its distinct sids and the noise entry) read once and the
+        ones that change written. Operations: ~8 f32 per slot and per read
+        per chain."""
+        n_sids = int(torch.unique(torch.cat(
+            [p.sid for p in layout.parts])).numel()) + 1
+        nbytes = (layout.n_slots * 8 + layout.n_reads * 4 +
+                  C * layout.n_reads * 4 + moved * 4 + C * n_sids * 4 +
+                  changed * 4)
+        return bound(nbytes, C * (layout.n_slots + layout.n_reads) * 8,
+                     mem_rate, op_rate) + (nbytes, n_sids)
+
+    layout, assigns, tab = setup(em.log_conprb, em.log_ncp, "EM conprbs")
+    k_ms, plain_sweep, moved, changed = hold(layout, assigns, tab,
+                                             "EM conprbs")
     p_ms = time_cuda(plain_sweep, samples=5, warm=1)
+    big_layout, big = relabel_layout(layout, tab)
+    big_ms, _p, big_moved, big_changed = hold(
+        big_layout, assigns, big, "EM conprbs relabelled")
     rng = np.random.default_rng(5)
     kept = np.isfinite(em.log_conprb)
     lcp_mix = np.where(kept, rng.normal(-20.0, 2.0, kept.shape), -np.inf)
     lnp_mix = rng.normal(-23.0, 2.0, em.log_ncp.shape)
-    _l, mix_ms, _p = hold(lcp_mix, lnp_mix, "mixing variant")
-    # each placed slot's sid + cps once, each read's ncs once, every
-    # chain's assignment read and written once, every chain's table read
-    # and written once; ~8 f32 operations per slot and per read per chain
-    n_slots, n_reads, T = layout.n_slots, layout.n_reads, M + 1
-    nbytes = n_slots * 8 + n_reads * 4 + C * n_reads * 8 + C * T * 8
-    b_ms, b_by = bound(nbytes, C * (n_slots + n_reads) * 8, mem_rate,
-                       op_rate)
-    log(f"K5: one sweep = {layout.n_tiles} tile steps in sequence per chain; "
-        f"{k_ms[0] * 1e3 / layout.n_tiles:.2f} us per tile step measured "
-        f"({layout.n_tiles} x that = {k_ms[0]:.3f} ms; mixing variant "
-        f"{mix_ms[0]:.3f} ms), byte bound {b_ms * 1e3:.2f} us")
+    mix = setup(lcp_mix, lnp_mix, "mixing variant")
+    mix_ms, _p, mix_moved, _c = hold(*mix, "mixing variant")
+    big_mix = relabel_layout(mix[0], mix[2])
+    big_mix_ms, _p, _m, _c = hold(big_mix[0], mix[1], big_mix[1],
+                                  "mixing variant relabelled")
+    n_tiles = layout.n_tiles
+    b_ms, b_by, nbytes, n_sids = k5_bound(layout, moved, changed)
+    bl_ms, _by, _nb, _ns = k5_bound(big_layout, big_moved, big_changed)
+    log(f"K5: one sweep = {n_tiles} tile steps in sequence per chain; "
+        f"{k_ms[0] * 1e3 / n_tiles:.2f} us per tile step at T = {M + 1}, "
+        f"{big_ms[0] * 1e3 / n_tiles:.2f} at T = {big.shape[1]}; bound "
+        f"{b_ms * 1e3:.2f} us per sweep ({b_by}: {nbytes} bytes, {n_sids} "
+        f"table entries touched per chain, {moved:.0f} assignments and "
+        f"{changed:.0f} table entries changed per sweep; mixing variant "
+        f"{mix_moved:.0f} assignments moved per sweep), "
+        f"{bl_ms * 1e3:.2f} us at the large table")
+    us = lambda ms: ms[0] * 1e3 / n_tiles  # noqa: E731
     return dict(
         name="sweep_part", id="K5", route="cuda",
         source="rsem_tpu_torch/csrc/gibbs_sweep.cu",
         replaces="rsem_tpu/ops/pallas_gibbs.py:371",
-        shape=f"{len(layout.parts)} parts, {layout.n_tiles} tiles of 8192 "
-              f"slots, {n_reads} reads, {n_slots} slots, {C} chains, table "
-              f"[{C}, {T}]",
+        shape=f"{len(layout.parts)} parts, {n_tiles} tiles of 8192 "
+              f"slots, {layout.n_reads} reads, {layout.n_slots} slots, {C} "
+              f"chains, table [{C}, {M + 1}] (large table [{C}, "
+              f"{big.shape[1]}])",
         max_abs_err=0.0, tolerance="identical assignments and tables",
-        ms=k_ms[0], ms_min=k_ms[1], ms_max=k_ms[2], plain_ms=p_ms[0],
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        mixing_ms=mix_ms[0], tiles_per_sweep=layout.n_tiles)
+        ms=k_ms[0], ms_min=k_ms[1], ms_max=k_ms[2], us_per_tile=us(k_ms),
+        plain_ms=p_ms[0], library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        ms_large_table=big_ms[0], ms_large_table_min=big_ms[1],
+        ms_large_table_max=big_ms[2], us_per_tile_large_table=us(big_ms),
+        bound_ms_large_table=bl_ms, ms_mixing=mix_ms[0],
+        ms_large_table_mixing=big_mix_ms[0], tiles_per_sweep=n_tiles)
 
 
 def _read_table(path):

@@ -30,6 +30,7 @@ from ..constants import EPSILON
 from ..ops.gibbs import (
     GibbsLayout,
     build_layout,
+    delta_scratch,
     init_chains,
     part_seed,
     sweep_part,
@@ -167,9 +168,10 @@ def run_chains(layout: GibbsLayout, assigns: List[torch.Tensor],
     seeds = [part_seed(cfg.seed, pi) for pi in range(len(layout.parts))]
     cvs = torch.zeros((C, spc, layout.M + 1), dtype=torch.float32,
                       device=table.device)
+    scratch = delta_scratch(table)
     for s in range(total):
         for part, a, sp in zip(layout.parts, assigns, seeds):
-            sweep_part(a, table, part, sp, s)
+            sweep_part(a, table, part, sp, s, scratch)
         k = retained_index(s, cfg)
         if k is not None:
             cvs[:, k] = table - pseudo

@@ -25,13 +25,16 @@ updates both IN PLACE (the JAX kernel returns new arrays).
 
 `sweep_part` runs the CUDA kernel (csrc/gibbs_sweep.cu) on CUDA tensors
 and `sweep_part_plain` on CPU tensors. Both use the same float32 arithmetic
-in the same order (no fused multiply-add), so they agree bit for bit.
+in the same order (no fused multiply-add), so they agree bit for bit. The
+kernel keeps the count table in device memory at any T and sums a tile's
+deltas per sid in an int32 scratch (`delta_scratch`) that the caller
+allocates once and passes to every sweep.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -300,7 +303,7 @@ def _group_prefix(w: torch.Tensor) -> torch.Tensor:
 # the sweep                                                          #
 # ------------------------------------------------------------------ #
 def _check_state(assign: torch.Tensor, table: torch.Tensor,
-                 part: GibbsPart) -> None:
+                 part: GibbsPart, scratch: Optional[torch.Tensor]) -> None:
     if assign.dtype != torch.int32 or assign.dim() != 2 or \
             not assign.is_contiguous():
         raise ValueError("assign must be a contiguous [C, n_reads] int32")
@@ -310,9 +313,15 @@ def _check_state(assign: torch.Tensor, table: torch.Tensor,
     if table.dtype != torch.float32 or table.dim() != 2 or \
             not table.is_contiguous() or table.shape[0] != assign.shape[0]:
         raise ValueError("table must be a contiguous [C, M+1] float32")
-    for t in (table, part.sid, part.cps, part.ncs):
-        if t.device != assign.device:
-            raise ValueError("assign, table and the part must share a device")
+    if scratch is not None and (
+            scratch.dtype != torch.int32 or scratch.shape != table.shape or
+            not scratch.is_contiguous()):
+        raise ValueError("scratch must be a contiguous int32 of the table's "
+                         "shape")
+    for t in (table, part.sid, part.cps, part.ncs, scratch):
+        if t is not None and t.device != assign.device:
+            raise ValueError("assign, table, scratch and the part must share "
+                             "a device")
 
 
 def sweep_part_plain(assign: torch.Tensor, table: torch.Tensor,
@@ -366,21 +375,37 @@ def sweep_part_plain(assign: torch.Tensor, table: torch.Tensor,
     return assign, table
 
 
+def delta_scratch(table: torch.Tensor) -> torch.Tensor:
+    """The zeroed int32 scratch in which K5 sums a tile's deltas per sid,
+    of the table's shape and device. The kernel leaves it zero, so one
+    scratch serves every sweep of that table in stream order; run_chains
+    allocates one per run."""
+    return torch.zeros(table.shape, dtype=torch.int32, device=table.device)
+
+
 def sweep_part(assign: torch.Tensor, table: torch.Tensor, part: GibbsPart,
-               seed_part: int, sweep: int
+               seed_part: int, sweep: int,
+               scratch: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sweep over a part's tiles for every chain (K5), IN PLACE.
 
     assign: [C, part.n_reads] int32 slot of each read (-1 = noise);
     table: [C, M+1] f32 counts + pseudo-counts (index 0 = noise);
-    seed_part: uint32 part seed; sweep: global sweep index."""
-    _check_state(assign, table, part)
+    seed_part: uint32 part seed; sweep: global sweep index; scratch:
+    delta_scratch(table), reused across sweeps (None: one for this call).
+    The plain version, which needs no scratch, runs on CPU tensors."""
+    _check_state(assign, table, part, scratch)
     if assign.device.type == "cpu":
         return sweep_part_plain(assign, table, part, seed_part, sweep)
     if assign.device.type != "cuda":
         raise ValueError(f"unsupported device {assign.device}")
+    for name, t in (("sid", part.sid), ("cps", part.cps), ("ncs", part.ncs),
+                    ("assign", assign)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"K5 needs a 16-byte-aligned {name}")
+    if scratch is None:
+        scratch = delta_scratch(table)
     C, T = table.shape
-    scratch = torch.zeros((C, T), dtype=torch.int32, device=table.device)
     _build.check(_build.lib().rsem_gibbs_sweep(
         part.sid.data_ptr(), part.cps.data_ptr(), part.ncs.data_ptr(),
         assign.data_ptr(), table.data_ptr(), scratch.data_ptr(),

@@ -282,3 +282,23 @@ def synthetic_gibbs_hits(N: int, M: int, seed: int, max_hits: int,
                      pos=np.zeros(H, dtype=np.int32), insert_len=None,
                      read_offsets=offs.astype(np.int64))
     return hits, lcp, lnp
+
+
+def relabel_layout(layout, table, factor: int = 10):
+    """The same Gibbs layout with every slot sid s relabelled factor * s and
+    the chains' count table widened to T = factor * M + 1 (entry factor * s
+    holds entry s; the others hold 1.0 and are never touched). Tiles, read
+    order and sampling stay as they were; only the table is larger.
+    Returns (layout, table)."""
+    import torch
+
+    from .ops.gibbs import GibbsLayout, GibbsPart
+
+    parts = [GibbsPart(p.sid * factor, p.cps, p.ncs, p.K, p.n_tiles,
+                       p.n_real) for p in layout.parts]
+    C, T = table.shape
+    wide = torch.ones((C, factor * (T - 1) + 1), dtype=table.dtype,
+                      device=table.device)
+    wide[:, ::factor] = table
+    return (GibbsLayout(parts, factor * layout.M, layout.n_reads,
+                        layout.n_noise_fixed), wide)

@@ -8,8 +8,9 @@ Covers the branches the full-width smoke run does not reach: tables too
 large for the shared-memory copy (gather) or needing the opt-in shared
 memory (scatter), 256-column rows, empty inputs, reads of up to 200 hits
 in the theta round, PreIdx for paired and quality-less reads, and the
-Gibbs sweep (K5) at read widths from 1 to 256 slots, one and eight chains;
-plus run_gibbs and run_ci on the card against the CPU and the goldens."""
+Gibbs sweep (K5) at read widths from 1 to 8192 slots, one and eight chains,
+on the layout's own table and on one 40 times as large; plus run_gibbs and
+run_ci on the card against the CPU and the goldens."""
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from rsem_tpu_torch.io.hits import HitArrays
 from rsem_tpu_torch.ops import conprb, gibbs, table, theta
 from rsem_tpu_torch.ops.layout import HitsDevice
 from rsem_tpu_torch.testing import (
+    relabel_layout,
     synthetic_arrays_fast,
     synthetic_dataset,
     synthetic_gibbs_hits,
@@ -162,15 +164,19 @@ def test_run_em_cuda_matches_cpu(dev, paired):
     np.testing.assert_allclose(g.frac_hit, c.frac_hit, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("table", ["M", "relabelled"])
 @pytest.mark.parametrize("n_chains", [1, 8])
-@pytest.mark.parametrize("K", [1, 4, 32, 64, 256])
-def test_gibbs_sweep_matches_plain(dev, K, n_chains):
+@pytest.mark.parametrize("K", [1, 4, 32, 64, 256, 1024, 8192])
+def test_gibbs_sweep_matches_plain(dev, K, n_chains, table):
     """K5 against sweep_part_plain on the card and on the CPU, exact, over
     two sweeps: several tiles per part, window and full-table parts (K=1,
     M=5000), fractional pseudo-counts, an omitted sid, and reads whose noise
-    slot competes with their hits."""
+    slot competes with their hits. table: the layout's own T = M+1, or the
+    sids relabelled s -> 40 s in a table of T = 40 M + 1 (200,001 at
+    K=1). One delta scratch serves all the card's sweeps and ends zero."""
     lo = K // 2 + 1 if K > 1 else 1
-    N = {1: 20000, 4: 5000, 32: 800, 64: 400, 256: 100}[K]
+    N = {1: 20000, 4: 5000, 32: 800, 64: 400, 256: 100, 1024: 24,
+         8192: 3}[K]
     M = 5000 if K == 1 else 300
     hits, lcp, lnp = synthetic_gibbs_hits(N, M, seed=K, max_hits=K,
                                           min_hits=lo)
@@ -181,15 +187,19 @@ def test_gibbs_sweep_matches_plain(dev, K, n_chains):
     base[17] = -0.9  # omitted
     base[0] += 5.0
     assigns, tab = gibbs.init_chains(layout, base, n_chains, seed=3)
+    if table == "relabelled":
+        layout, tab = relabel_layout(layout, tab, factor=40)
     lay_g = layout.to(dev)
     a_g = [a.to(dev) for a in assigns]
     a_p = [a.to(dev) for a in assigns]
     t_g, t_p = tab.to(dev), tab.to(dev)
+    scratch = gibbs.delta_scratch(t_g)
     n0 = gibbs.sweep_part.launches
     for sweep in range(2):
         for pi, part in enumerate(layout.parts):
             sp = gibbs.part_seed(11, pi)
-            gibbs.sweep_part(a_g[pi], t_g, lay_g.parts[pi], sp, sweep)
+            gibbs.sweep_part(a_g[pi], t_g, lay_g.parts[pi], sp, sweep,
+                             scratch)
             gibbs.sweep_part_plain(a_p[pi], t_p, lay_g.parts[pi], sp, sweep)
             gibbs.sweep_part(assigns[pi], tab, part, sp, sweep)
     torch.cuda.synchronize()
@@ -198,6 +208,7 @@ def test_gibbs_sweep_matches_plain(dev, K, n_chains):
         assert torch.equal(g.cpu(), p.cpu()) and torch.equal(g.cpu(), c)
     assert torch.equal(t_g.cpu(), t_p.cpu()) and torch.equal(t_g.cpu(), tab)
     assert sum(int((a >= 0).sum()) for a in assigns) > 0
+    assert not bool(scratch.any())
 
 
 def test_gibbs_sweep_checks_inputs(dev):
@@ -212,6 +223,18 @@ def test_gibbs_sweep_checks_inputs(dev):
         gibbs.sweep_part(a[:, :-1].contiguous(), t, part, 1, 0)
     with pytest.raises(ValueError):
         gibbs.sweep_part(a, t.cpu(), part, 1, 0)
+    with pytest.raises(ValueError, match="scratch"):
+        gibbs.sweep_part(a, t, part, 1, 0, gibbs.delta_scratch(t)[:, :-1])
+    # a launch the kernel refuses (read count not the part's) raises
+    from rsem_tpu_torch.ops import _build
+
+    s = gibbs.delta_scratch(t)
+    with pytest.raises(RuntimeError, match="gibbs_sweep"):
+        _build.check(_build.lib().rsem_gibbs_sweep(
+            part.sid.data_ptr(), part.cps.data_ptr(), part.ncs.data_ptr(),
+            a.data_ptr(), t.data_ptr(), s.data_ptr(), part.n_tiles,
+            part.K.bit_length() - 1, 2, part.n_reads - 1, 21, 1, 0,
+            _build.stream_of(t)), "gibbs_sweep")
 
 
 def test_run_gibbs_cuda_matches_cpu(dev):
