@@ -11,10 +11,15 @@ non-zero on failure:
  3. hold each kernel against its plain PyTorch version on the card at the
     shapes of the full-width workload (1M single-end 100 bp reads with
     qualities, ~2.5 alignments per read, M = 20,000 transcripts):
-    K4 bit-identical, K2 within rtol 1e-6, K1/K3 within rtol 1e-5
-    (atol 1e-6); time kernel, plain version and, where one PyTorch call
-    computes the same function, that call (CUDA events, >= 5 warm
-    samples), and the bound from bytes and operations.
+    K4 bit-identical, K2 within rtol 1e-6, K3 within rtol 1e-5 (atol
+    1e-6), K1's whole round (E-step sums, M-step, stop count) with counts
+    and theta within rtol 1e-5 and the stop count within 2 entries; time
+    kernel (K1: per round inside one call of theta.SEGMENT rounds, and
+    one round alone), plain version and, where one PyTorch call computes
+    the same function, that call (CUDA events, >= 5 warm samples), and
+    the bound from bytes and operations. Then the theta loop forced to
+    500 rounds (min_round = max_round = 500) on the same frozen data, at
+    segments of 1, 16, theta.SEGMENT and 64 rounds: wall ms per round.
  4. drive the main path: rsem_tpu_torch.engine.em.run_em on that workload,
     launch counts zeroed just before and read just after (every kernel
     must have launched); then >= 5 warm passes; check sum(counts) = N1+N0
@@ -276,7 +281,7 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate):
         library_call="index_add_ over pre-expanded indices and weights",
         noise_shape_ms=kn_ms[0], bound_ms=b_ms, bound_by=b_by))
 
-    # K1: theta round over the frozen conprbs of the initial model
+    # K1: theta rounds over the frozen conprbs of the initial model
     pre = conprb.PreIdx(flat, None, nflat, None)
     lcp = conprb.compute_log_conprb(kcfg, refd, m1, None, hd, dm, pre)
     lnp = conprb.compute_log_noise_conprb(kcfg, m1, None, dm, pre)
@@ -285,30 +290,85 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate):
     th = torch.as_tensor(
         np.random.default_rng(1).dirichlet(np.ones(ref.M + 1)),
         dtype=torch.float32).to(dev)
-    c_k, n_k = theta.theta_round(th, data)
-    c_p, n_p = theta.theta_round_plain(th, data)
-    err = max(close(c_k, c_p, 1e-5, 1e-6, "K1 theta_round contrib"),
-              close(n_k, n_p, 1e-5, 1e-6, "K1 theta_round noise"))
-    k_ms = time_cuda(lambda: theta.theta_round(th, data))
+    seg = theta.SEGMENT
+    state = theta.round_state(data, seg, dev)
+    state.ring[0] = th
+    theta.theta_round(state, data, 1)
+    t_p, c_p, n_p = theta.theta_round_plain(th, data)
+    err = max(close(state.ring[1], t_p, 1e-5, 1e-9, "K1 theta_round theta"),
+              close(state.counts, c_p, 1e-5, 1e-6, "K1 theta_round counts"))
+    d_tot = abs(int(state.tot[0]) - int(n_p))
+    if d_tot > 2:
+        fail(f"K1 stop count {int(state.tot[0])}, plain {int(n_p)}")
+    k_ms = [t / seg for t in time_cuda(
+        lambda: theta.theta_round(state, data, seg))]
+    one_ms = time_cuda(lambda: theta.theta_round(state, data, 1))
     p_ms = time_cuda(lambda: theta.theta_round_plain(th, data))
-    nbytes = (H * 8 + N * 4 + (N + 1) * 8 + (ref.M + 1) * 4
-              + (ref.M + 1) * 8 + 8)
-    b_ms, b_by = bound(nbytes, 4 * H + 3 * N, mem_rate, op_rate)
+    # the function's own bytes: hits (sid, cps), reads (ncs, offsets),
+    # theta read, counts written, the M-step's counts and theta read and
+    # theta_new written, the stop count
+    M1 = ref.M + 1
+    nbytes = H * 8 + N * 4 + (N + 1) * 8 + M1 * (4 + 8 + 8 + 4) + 4
+    b_ms, b_by = bound(nbytes, 4 * H + 3 * N + 6 * M1, mem_rate, op_rate)
+    loop = phase_theta_loop(data, dev)
     rows.append(dict(
         name="theta_round", id="K1", route="cuda",
         source="rsem_tpu_torch/csrc/theta_round.cu",
         replaces="rsem_tpu/ops/pallas_round.py:337",
-        shape=f"CSR H={H} N={N} M+1={ref.M + 1}",
-        max_abs_err=err, tolerance="rtol 1e-5, atol 1e-6", ms=k_ms[0],
-        ms_min=k_ms[1], ms_max=k_ms[2], plain_ms=p_ms[0], library_ms=None,
-        bound_ms=b_ms, bound_by=b_by))
+        shape=f"CSR H={H} N={N} M+1={M1}",
+        timed=f"one round (E-step sums, M-step, stop count) inside one "
+              f"call of {seg} rounds into preallocated buffers",
+        max_abs_err=err, stop_count_diff=d_tot,
+        tolerance="theta and counts rtol 1e-5 (atol 1e-9 / 1e-6), stop "
+                  "count within 2",
+        ms=k_ms[0], ms_min=k_ms[1], ms_max=k_ms[2],
+        ms_one_round_call=one_ms[0], plain_ms=p_ms[0], library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, **loop))
     for r in rows:
-        log(f"{r['id']} {r['name']}: kernel {r['ms']:.3f} ms "
-            f"[{r['ms_min']:.3f}, {r['ms_max']:.3f}], plain "
+        log(f"{r['id']} {r['name']}: kernel {r['ms']:.4f} ms "
+            f"[{r['ms_min']:.4f}, {r['ms_max']:.4f}], plain "
             f"{r['plain_ms']:.3f} ms, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}), max abs err "
             f"{r['max_abs_err']:.3g}")
     return rows
+
+
+def phase_theta_loop(data, dev, rounds: int = 500, samples: int = 3):
+    """The theta loop forced to `rounds` rounds (min_round = max_round) on
+    the frozen data, from a uniform theta, with segments of 1 round (a
+    host read of the stop count after every round), of theta.SEGMENT and,
+    for the choice of it, of 16 and 64 rounds: wall ms per round (host
+    clock around a synchronised call, median of `samples`)."""
+    import torch
+
+    from rsem_tpu_torch.ops import theta
+
+    th0 = torch.full((data.M + 1,), 1.0 / (data.M + 1), device=dev)
+    kept = theta.SEGMENT
+    per_round = {}
+    try:
+        for seg in sorted({1, 16, kept, 64}):
+            theta.SEGMENT = seg
+            ws = []
+            for _ in range(samples):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _t, r = theta.run_theta_loop(th0, data, min_round=rounds,
+                                             max_round=rounds)
+                torch.cuda.synchronize()
+                ws.append((time.perf_counter() - t0) * 1e3 / rounds)
+                if r != rounds:
+                    fail(f"theta loop ran {r} rounds, not {rounds}")
+            per_round[seg] = statistics.median(ws)
+            log(f"theta loop, {rounds} rounds, segment {seg}: "
+                f"{per_round[seg]:.4f} ms per round (median of {samples}; "
+                f"{', '.join(f'{w:.4f}' for w in ws)})")
+    finally:
+        theta.SEGMENT = kept
+    return {"segment": kept, f"loop{rounds}_ms_per_round": per_round[kept],
+            f"loop{rounds}_ms_per_round_segment_1": per_round[1],
+            f"loop{rounds}_ms_per_round_by_segment": {
+                str(k): v for k, v in per_round.items()}}
 
 
 def kernel_wrappers():

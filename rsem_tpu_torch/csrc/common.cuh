@@ -24,4 +24,21 @@ inline int grid_for(int64_t work_items, int64_t items_per_block,
   return (int)(g > 0 ? g : 1);
 }
 
+// Grid for a grid-stride loop of `kernel`: enough blocks for `work_items`,
+// capped at the blocks that are resident at once (the occupancy the
+// kernel's registers and shared memory allow), so no block waits for a
+// second wave while the others idle.
+template <typename Kernel>
+inline int resident_grid(Kernel kernel, int threads, int64_t work_items,
+                         int64_t items_per_block) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const int64_t need = (work_items + items_per_block - 1) / items_per_block;
+  const int64_t cap = (int64_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  const int64_t g = need < cap ? need : cap;
+  return (int)(g > 0 ? g : 1);
+}
+
 }  // namespace rsem

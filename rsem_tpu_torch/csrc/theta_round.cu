@@ -1,117 +1,205 @@
-// One theta-only EM round over frozen, per-read max-scaled conprbs (K1).
+// Theta-only EM rounds over frozen, per-read max-scaled conprbs (K1), the
+// M-step and the stop test included, enqueued a segment at a time.
 //
 // Replaces rsem_tpu/ops/pallas_round.py: _round_kernel (with the bucket
-// layout of build_pallas_data around it). Per read r with hits h:
-//   w_h      = theta[sid_h] * cps_h
-//   denom_r  = sum_h w_h + theta[0] * ncs_r
-//   contrib[sid_h] += cps_h / denom_r
-//   noise          += theta[0] * ncs_r / denom_r
-// The caller multiplies contrib by theta and normalises (the M-step).
+// layout of build_pallas_data around it) and the body of the on-device
+// while_loop of rsem_tpu/ops/fast_estep.py: run_fast_em_loop. Round i reads
+// theta = ring[i] and writes ring[i + 1], the counts and tot[i]:
+//   inv_r     = 1 / (sum_h theta[sid_h] * cps_h + theta[0] * ncs_r)
+//   counts[m] = theta[m] * sum_{hits h of m} cps_h * inv_{read of h}
+//   counts[0] = sum_r theta[0] * ncs_r * inv_r + n0
+//   ring[i+1] = f32(counts / sum(counts))          (f64 sums)
+//   tot[i]    = #{m : theta[m] >= 1e-7f, |new - theta| / theta >= 1e-3f}
+// (the last in f32, as the reference loop's test, EM.cpp:407-416).
 //
-// What bounds it on the H100: bytes and atomics. One round reads
-// H * (4 + 4) + N * (4 + 8) bytes (about 32 MB at 2.5M hits, 1M reads) and
-// issues one f64 atomic per hit into an (M+1)-slot vector that L2 holds.
-// The TPU kernel bucketed reads by hit count K into [X, 128] tiles, scanned
-// the theta table with lane shuffles, summed denominators with XOR
-// butterflies and scattered through one-hot MXU products with Kahan
-// compensation; a GPU gathers and scatters directly, so none of that
-// remains: the hits stay in CSR order (read_offsets), there is no M cap,
-// and the sums are native f64.
+// What bounds it on the H100: latency. One round reads H * (4 + 4 + 4) + N
+// * (4 + 8) bytes and ~(M+1) * 24 (about 42 MB at 2.5M hits, 1M reads:
+// ~13 us at 3.35 TB/s); at this size dependent gathers, launch gaps and
+// the reductions across blocks set the time, and on the loop a host read
+// per round cost more than the round. So a round allocates and zeroes
+// nothing (the caller owns every buffer; each kernel resets what a later
+// one accumulates into), the M-step and the stop count run on the device,
+// and the host enqueues a whole segment of rounds with one call and reads
+// the segment's stop counts once.
 //
-// Design: a warp takes 32 consecutive reads. A read with <= kSmall hits
-// (the common case: ~2.5 hits per read) is done by one lane alone; the
-// warp's longer reads are then done one after another by all 32 lanes,
-// striding over the hits and summing the denominator with a shuffle.
-// theta is read through the read-only cache. The noise term is summed per
-// lane in f64, reduced per block, and added with one f64 atomic per block.
+// Design, three kernels per round:
+//  1. reads: a warp takes 32 consecutive reads and walks their hits (one
+//     contiguous CSR range) 32 at a time with coalesced loads of sid, rid
+//     and cps; the per-read denominators are a segmented sum over the
+//     lanes (shuffle scan, keyed by rid) into shared memory, then each lane
+//     finishes one read and a second walk adds cps * inv into
+//     contrib[sid] with f64 atomics (2.5M of them, which L2 absorbs; a
+//     deterministic form without atomics, a warp per transcript over a
+//     sid-ordered copy gathering inv[rid], measured slower). The noise sum
+//     goes to acc[0] with one f64 atomic per block.
+//  2. counts over M+1: counts = contrib * theta, counts[0] = noise + n0,
+//     contrib left zero, the total summed per block into acc[1].
+//  3. M-step over M+1: ring[i+1] and the stop count (integer atomics, so
+//     exact); acc[0] left zero.
+// The atomics make the f64 sums' last bits depend on the order in which
+// blocks finish, as index_add_ on the card does.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int64_t kSmall = 4;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr float kThetaCut = 1e-7f;  // THETA_CUT
+constexpr float kStop = 1e-3f;      // STOP_CRITERIA
+enum { kNoise = 0, kTotal = 1 };    // slots of acc
 
-__global__ void __launch_bounds__(kThreads) theta_round_kernel(
-    const int32_t* __restrict__ sid, const float* __restrict__ cps,
-    const float* __restrict__ ncs, const int64_t* __restrict__ offsets,
-    int64_t n_reads, const float* __restrict__ theta,
-    double* __restrict__ contrib, double* __restrict__ noise) {
-  __shared__ double s_noise[kWarpsPerBlock];
+// Sum over the block (butterfly in each warp, then the warps in order);
+// the result is valid in thread 0.
+__device__ double block_sum(double v, double* s_warp) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(rsem::kFullMask, v, o);
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  double t = 0.0;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kWarps; ++i) t += s_warp[i];
+  return t;
+}
+
+__global__ void __launch_bounds__(kThreads) reads_kernel(
+    const int32_t* __restrict__ sid, const int32_t* __restrict__ rid,
+    const float* __restrict__ cps, const float* __restrict__ ncs,
+    const int64_t* __restrict__ offsets, int64_t n_reads,
+    const float* __restrict__ theta, double* __restrict__ contrib,
+    double* __restrict__ acc, int32_t* __restrict__ tot) {
+  __shared__ float s_den[kWarps][32];
+  __shared__ double s_warp[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* den = s_den[warp];
   const float th0 = __ldg(theta);
   double my_noise = 0.0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    acc[kTotal] = 0.0;  // read by the last round's M-step, summed below
+    *tot = 0;
+  }
   const int64_t n_groups = (n_reads + 31) / 32;
-  for (int64_t g = (int64_t)blockIdx.x * kWarpsPerBlock + warp; g < n_groups;
-       g += (int64_t)gridDim.x * kWarpsPerBlock) {
-    const int64_t r = g * 32 + lane;
-    const bool live = r < n_reads;
-    int64_t b = 0, e = 0;
-    if (live) {
-      b = __ldg(offsets + r);
-      e = __ldg(offsets + r + 1);
-    }
-    const bool small = live && (e - b) <= kSmall;
-    if (small) {
-      float d = 0.f;
-      for (int64_t h = b; h < e; ++h)
-        d += __ldg(theta + __ldg(sid + h)) * __ldg(cps + h);
-      const float w0 = th0 * __ldg(ncs + r);
-      const float denom = d + w0;
-      const float inv = denom > 0.f ? 1.f / denom : 0.f;
-      for (int64_t h = b; h < e; ++h) {
-        const float u = __ldg(cps + h) * inv;
-        if (u != 0.f) atomicAdd(contrib + __ldg(sid + h), (double)u);
+  for (int64_t g = (int64_t)blockIdx.x * kWarps + warp; g < n_groups;
+       g += (int64_t)gridDim.x * kWarps) {
+    const int64_t r0 = g * 32;
+    const int nr = (int)min((int64_t)32, n_reads - r0);
+    const int64_t hb = __ldg(offsets + r0), he = __ldg(offsets + r0 + nr);
+    den[lane] = 0.f;
+    __syncwarp();
+    for (int64_t h0 = hb; h0 < he; h0 += 32) {
+      const int64_t h = h0 + lane;
+      int key = -1;  // the hit's read in the group; -1 past the range
+      float w = 0.f;
+      if (h < he) {
+        key = (int)(__ldg(rid + h) - r0);
+        w = __ldg(theta + __ldg(sid + h)) * __ldg(cps + h);
       }
+      // inclusive scan within runs of one key (hits are sorted by read)
+      for (int o = 1; o < 32; o <<= 1) {
+        const float wu = __shfl_up_sync(rsem::kFullMask, w, o);
+        const int ku = __shfl_up_sync(rsem::kFullMask, key, o);
+        if (lane >= o && ku == key) w += wu;
+      }
+      const int kn = __shfl_down_sync(rsem::kFullMask, key, 1);
+      if (key >= 0 && (lane == 31 || kn != key)) den[key] += w;
+      __syncwarp();
+    }
+    float inv = 0.f;
+    if (lane < nr) {
+      const float w0 = th0 * __ldg(ncs + r0 + lane);
+      const float denom = den[lane] + w0;
+      inv = denom > 0.f ? 1.f / denom : 0.f;
       my_noise += (double)(w0 * inv);
     }
-    unsigned big = __ballot_sync(rsem::kFullMask, live && !small);
-    while (big) {
-      const int src = __ffs(big) - 1;
-      big &= big - 1;
-      const int64_t rb = __shfl_sync(rsem::kFullMask, b, src);
-      const int64_t re = __shfl_sync(rsem::kFullMask, e, src);
-      const int64_t rr = g * 32 + src;
-      float d = 0.f;
-      for (int64_t h = rb + lane; h < re; h += 32)
-        d += __ldg(theta + __ldg(sid + h)) * __ldg(cps + h);
-      for (int o = 16; o > 0; o >>= 1)
-        d += __shfl_xor_sync(rsem::kFullMask, d, o);
-      const float w0 = th0 * __ldg(ncs + rr);
-      const float denom = d + w0;
-      const float inv = denom > 0.f ? 1.f / denom : 0.f;
-      for (int64_t h = rb + lane; h < re; h += 32) {
-        const float u = __ldg(cps + h) * inv;
-        if (u != 0.f) atomicAdd(contrib + __ldg(sid + h), (double)u);
-      }
-      if (lane == 0) my_noise += (double)(w0 * inv);
+    __syncwarp();
+    den[lane] = inv;
+    __syncwarp();
+    for (int64_t h = hb + lane; h < he; h += 32) {
+      const float u = __ldg(cps + h) * den[__ldg(rid + h) - r0];
+      if (u != 0.f) atomicAdd(contrib + __ldg(sid + h), (double)u);
+    }
+    __syncwarp();
+  }
+  const double s = block_sum(my_noise, s_warp);
+  if (threadIdx.x == 0 && s != 0.0) atomicAdd(acc + kNoise, s);
+}
+
+__global__ void __launch_bounds__(kThreads) counts_kernel(
+    double* __restrict__ contrib, int64_t n_tx,
+    const float* __restrict__ theta, double n0, double* __restrict__ counts,
+    double* __restrict__ acc) {
+  __shared__ double s_warp[kWarps];
+  double mine = 0.0;
+  for (int64_t m = (int64_t)blockIdx.x * kThreads + threadIdx.x; m < n_tx;
+       m += (int64_t)gridDim.x * kThreads) {
+    const double c = contrib[m];
+    contrib[m] = 0.0;
+    if (m > 0) {
+      const double v = c * (double)__ldg(theta + m);
+      counts[m] = v;
+      mine += v;
     }
   }
-  for (int o = 16; o > 0; o >>= 1)
-    my_noise += __shfl_xor_sync(rsem::kFullMask, my_noise, o);
-  if (lane == 0) s_noise[warp] = my_noise;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int i = 0; i < kWarpsPerBlock; ++i) s += s_noise[i];
-    if (s != 0.0) atomicAdd(noise, s);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const double c0 = acc[kNoise] + n0;
+    counts[0] = c0;
+    mine += c0;
   }
+  const double s = block_sum(mine, s_warp);
+  if (threadIdx.x == 0) atomicAdd(acc + kTotal, s);
+}
+
+__global__ void __launch_bounds__(kThreads) mstep_kernel(
+    const float* __restrict__ theta, const double* __restrict__ counts,
+    double* __restrict__ acc, float* __restrict__ theta_new, int64_t n_tx,
+    int32_t* __restrict__ tot) {
+  const double total = acc[kTotal];
+  int n = 0;
+  for (int64_t m = (int64_t)blockIdx.x * kThreads + threadIdx.x; m < n_tx;
+       m += (int64_t)gridDim.x * kThreads) {
+    const float tn = __double2float_rn(counts[m] / total);
+    const float th = theta[m];
+    theta_new[m] = tn;
+    n += th >= kThetaCut && fabsf(tn - th) / th >= kStop;
+  }
+  n = __reduce_add_sync(rsem::kFullMask, n);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(tot, n);
+  if (blockIdx.x == 0 && threadIdx.x == 0) acc[kNoise] = 0.0;
 }
 
 }  // namespace
 
-// contrib: zeroed f64 [M+1]; noise: zeroed f64 [1].
-extern "C" int rsem_theta_round(const int32_t* sid, const float* cps,
-                                const float* ncs, const int64_t* offsets,
-                                int64_t n_reads, const float* theta,
-                                double* contrib, double* noise,
-                                cudaStream_t stream) {
-  if (n_reads == 0) return (int)cudaGetLastError();
-  const int64_t n_groups = (n_reads + 31) / 32;
-  const int grid = rsem::grid_for(n_groups, kWarpsPerBlock, 8);
-  theta_round_kernel<<<grid, kThreads, 0, stream>>>(
-      sid, cps, ncs, offsets, n_reads, theta, contrib, noise);
-  return (int)cudaGetLastError();
+// Runs n_rounds rounds from ring[0] (ring: [n_rounds + 1, n_tx] f32),
+// writing ring[1..n_rounds], counts (f64 [n_tx], the last round's) and
+// tot[0..n_rounds). Scratch owned by the caller and reused: contrib f64
+// [n_tx] and acc f64 [2], zero at the first call; the kernels leave
+// contrib and acc[0] zero.
+extern "C" int rsem_theta_rounds(
+    const int32_t* sid, const int32_t* rid, const float* cps,
+    const float* ncs, const int64_t* read_offsets, int64_t n_reads,
+    int64_t n_tx, double n0, float* ring, double* counts, int32_t* tot,
+    double* contrib, double* acc, int n_rounds, cudaStream_t stream) {
+  if (n_rounds <= 0 || n_tx <= 0 || n_reads < 0)
+    return (int)cudaErrorInvalidValue;
+  const int g_reads = rsem::resident_grid(reads_kernel, kThreads,
+                                          (n_reads + 31) / 32, kWarps);
+  const int g_counts =
+      rsem::resident_grid(counts_kernel, kThreads, n_tx, kThreads);
+  const int g_m = rsem::resident_grid(mstep_kernel, kThreads, n_tx, kThreads);
+  for (int i = 0; i < n_rounds; ++i) {
+    const float* theta = ring + (int64_t)i * n_tx;
+    float* theta_new = ring + (int64_t)(i + 1) * n_tx;
+    reads_kernel<<<g_reads, kThreads, 0, stream>>>(
+        sid, rid, cps, ncs, read_offsets, n_reads, theta, contrib, acc,
+        tot + i);
+    counts_kernel<<<g_counts, kThreads, 0, stream>>>(contrib, n_tx, theta,
+                                                     n0, counts, acc);
+    mstep_kernel<<<g_m, kThreads, 0, stream>>>(theta, counts, acc, theta_new,
+                                               n_tx, tot + i);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

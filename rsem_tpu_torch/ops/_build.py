@@ -35,12 +35,14 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
+_F64 = ctypes.c_double
 SIGNATURES = {
     "rsem_gather_sum": [_P, _I64, _P, _I64, _I32, _P, _P],
     "rsem_scatter_add": [_P, _I64, _I32, _P, _I32, _P, _P],
     "rsem_preidx": [_P, _I64, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P,
                     _I64, _I32, _I32, _P, _P],
-    "rsem_theta_round": [_P, _P, _P, _P, _I64, _P, _P, _P, _P],
+    "rsem_theta_rounds": [_P, _P, _P, _P, _P, _I64, _I64, _F64, _P, _P, _P,
+                          _P, _P, _I32, _P],
     "rsem_gibbs_sweep": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I64,
                          _I64, _U32, _U32, _P],
 }

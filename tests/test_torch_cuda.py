@@ -109,21 +109,66 @@ def _data(hits, lcp, lnp, M, device):
                                lcp.to(device), lnp.to(device), M, 5.0)
 
 
-def test_theta_round_and_loop(dev):
+@pytest.mark.parametrize("segment", [1, 16])
+def test_theta_round_and_loop(dev, monkeypatch, segment):
+    """K1's fused round on the card against its plain version (counts and
+    theta to rtol 1e-5: the f32 denominators are summed in another order;
+    the stop count within 2 entries, which the last bit of theta_new can
+    move across the threshold), twice in a row from one state (the
+    kernels leave their scratch reset), then the segmented loop on the
+    card against the CPU loop: the same stop round."""
     M = 3000
     hits, lcp, lnp = _ragged_hits(5000, M, seed=3)
     d_gpu, d_cpu = _data(hits, lcp, lnp, M, dev), _data(hits, lcp, lnp, M,
                                                         CPU)
     th = torch.as_tensor(np.random.default_rng(1).dirichlet(np.ones(M + 1)),
                          dtype=torch.float32)
-    c_g, n_g = theta.theta_round(th.to(dev), d_gpu)
-    c_c, n_c = theta.theta_round_plain(th, d_cpu)
-    torch.testing.assert_close(c_g.cpu(), c_c, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(n_g.cpu(), n_c, rtol=1e-5, atol=1e-6)
+    state = theta.round_state(d_gpu, 2, dev)
+    state.ring[0] = th.to(dev)
+    n0 = theta.theta_round.launches
+    theta.theta_round(state, d_gpu, 2)
+    assert theta.theta_round.launches == n0 + 2
+    t1, c1, n1 = theta.theta_round_plain(th, d_cpu)
+    t2, c2, n2 = theta.theta_round_plain(state.ring[1].cpu(), d_cpu)
+    torch.testing.assert_close(state.ring[1].cpu(), t1, rtol=1e-5, atol=1e-9)
+    torch.testing.assert_close(state.ring[2].cpu(), t2, rtol=1e-5, atol=1e-9)
+    torch.testing.assert_close(state.counts.cpu(), c2, rtol=1e-5, atol=1e-6)
+    assert abs(int(state.tot[0]) - int(n1)) <= 2
+    assert abs(int(state.tot[1]) - int(n2)) <= 2
+    assert not bool(state.contrib.any()) and float(state.acc[0]) == 0.0
+    torch.testing.assert_close(theta.counts(th.to(dev), d_gpu).cpu(), c1,
+                               rtol=1e-5, atol=1e-6)
+    monkeypatch.setattr(theta, "SEGMENT", segment)
     t_g, r_g = theta.run_theta_loop(th.to(dev), d_gpu, max_round=300)
     t_c, r_c = theta.run_theta_loop(th, d_cpu, max_round=300)
     assert r_g == r_c
     torch.testing.assert_close(t_g.cpu(), t_c, rtol=1e-4, atol=1e-9)
+
+
+def test_theta_round_checks_inputs(dev):
+    from rsem_tpu_torch.ops import _build
+
+    M = 50
+    hits, lcp, lnp = _ragged_hits(300, M, seed=4)
+    data = _data(hits, lcp, lnp, M, dev)
+    state = theta.round_state(data, 2, dev)
+    with pytest.raises(ValueError):
+        theta.theta_round(state, data, 3)  # a ring row short
+    with pytest.raises(ValueError):
+        theta.theta_round(state._replace(ring=state.ring.double()), data)
+    with pytest.raises(ValueError):
+        theta.theta_round(state._replace(acc=state.acc.cpu()), data)
+    with pytest.raises(ValueError):
+        theta.theta_round(state, data._replace(rid=data.rid.long()))
+    # a launch the C entry refuses (no round) raises
+    with pytest.raises(RuntimeError, match="theta_round"):
+        _build.check(_build.lib().rsem_theta_rounds(
+            data.sid.data_ptr(), data.rid.data_ptr(), data.cps.data_ptr(),
+            data.ncs.data_ptr(), data.read_offsets.data_ptr(),
+            data.ncs.shape[0], M + 1, 0.0, state.ring.data_ptr(),
+            state.counts.data_ptr(), state.tot.data_ptr(),
+            state.contrib.data_ptr(), state.acc.data_ptr(), 0,
+            _build.stream_of(state.ring)), "theta_round")
 
 
 @pytest.mark.parametrize("read_len", [50, 150])
@@ -147,6 +192,62 @@ def test_preidx_matches_plain(dev, paired, has_qual, read_len):
     lg = conprb.compute_log_conprb(kcfg, *g, dm_g, pg)
     lc = conprb.compute_log_conprb(kcfg, *c, dm_c, pc)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("skew", [0, 1])
+@pytest.mark.parametrize("has_qual", [True, False])
+@pytest.mark.parametrize("read_len", [36, 50, 100, 150, 250])
+def test_preidx_read_lengths(dev, read_len, has_qual, skew):
+    """K4 bit-identical to its plain version for both mates at read rows
+    4-aligned (36, 100) and 2-aligned (50, 150, 250), 128 and 256
+    columns, with the read arrays' base 4-aligned or 1 byte off (skew),
+    and a hit count that is not a multiple of a warp's 32 rows."""
+    ref, bundle, _spec, model = synthetic_arrays_fast(
+        n_reads=1001, M=30, read_len=read_len, tx_len=4 * read_len,
+        paired=True, has_qual=has_qual, mean_extra_hits=1.3,
+        seed=read_len)
+    refd, m1, m2, hd = em.upload(ref, bundle, True, dev)
+    assert hd.n_hits % 32 != 0
+    kcfg = em.kernel_config(model, bundle, int(m1.codes.shape[1]))
+
+    def skewed(t):
+        if t is None or not skew:
+            return t
+        buf = torch.zeros(t.numel() + skew, dtype=t.dtype, device=dev)
+        out = buf[skew:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for mate, mate2 in ((m1, False), (m2, True)):
+        mate = mate._replace(codes=skewed(mate.codes),
+                             quals=skewed(mate.quals))
+        n0 = conprb.preidx_flat.launches
+        got = conprb.preidx_flat(kcfg, refd, mate, hd, mate2)
+        assert conprb.preidx_flat.launches == n0 + 1
+        cpu = [x.cpu() if x is not None else None for x in mate]
+        want = conprb.preidx_flat_plain(
+            kcfg, type(refd)(*[x.cpu() for x in refd]), type(mate)(*cpu),
+            type(hd)(*[x.cpu() if x is not None else None for x in hd]),
+            mate2)
+        assert got.shape == (hd.n_hits, conprb.pre_cols(read_len))
+        assert torch.equal(got.cpu(), want)
+
+
+def test_preidx_refused_launch_raises(dev):
+    from rsem_tpu_torch.ops import _build
+
+    ref, bundle, _spec, model = synthetic_arrays_fast(
+        n_reads=50, M=5, read_len=36, tx_len=200, has_qual=True, seed=1)
+    refd, m1, _m2, hd = em.upload(ref, bundle, False, dev)
+    out = torch.empty((hd.n_hits, 130), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="preidx"):  # cols % 4 != 0
+        _build.check(_build.lib().rsem_preidx(
+            refd.codes.data_ptr(), refd.codes.numel(),
+            refd.offsets.data_ptr(), refd.tot_len.data_ptr(),
+            m1.codes.data_ptr(), m1.quals.data_ptr(), m1.lens.data_ptr(), 36,
+            hd.rid.data_ptr(), hd.sid.data_ptr(), hd.pos.data_ptr(),
+            hd.dir.data_ptr(), None, hd.n_hits, 130, 7, out.data_ptr(),
+            _build.stream_of(out)), "preidx")
 
 
 @pytest.mark.parametrize("paired", [False, True])
