@@ -20,12 +20,25 @@ non-zero on failure:
     the bound from bytes and operations. Then the theta loop forced to
     500 rounds (min_round = max_round = 500) on the same frozen data, at
     segments of 1, 16, theta.SEGMENT and 64 rounds: wall ms per round.
- 4. drive the main path: rsem_tpu_torch.engine.em.run_em on that workload,
-    launch counts zeroed just before and read just after (every kernel
-    must have launched); then >= 5 warm passes; check sum(counts) = N1+N0
-    and sum(TPM) = 1e6.
+ 4. drive the main path: rsem_tpu_torch.engine.em.run_em on that workload
+    (its default: the fused model loop, then the theta loop), launch
+    counts zeroed just before and read just after (every kernel must have
+    launched); then >= 5 warm passes; check sum(counts) = N1+N0 and
+    sum(TPM) = 1e6.
  5. one more warm pass under torch.profiler, printing device time by
     kernel and the device's idle share.
+ 5a. the fused model loop against the per-round path at full width:
+    run_model_loop for 10 rounds under torch.cuda.set_sync_debug_mode
+    ("error") (any host sync fails), then its ms per round (CUDA events);
+    run_em with fused_model=True and False in turns, >= 5 warm passes
+    each (median, min, max); counts/N1 of the two within rtol 5e-3, atol
+    1e-4 and the refit pro.p / npro.p within rtol 5e-3, atol 1e-5 (the
+    tolerances of tests/test_model_loop.py:64-72); one warm pass of each
+    under torch.profiler.
+ 5b. the hybrid and native backends (C++ sidecar built with g++), once
+    each at full width: wall time, the sidecar's thread count, K1 must
+    launch under hybrid, sum(counts) = N1+N0, counts/N1 within rtol 5e-3,
+    atol 1e-4 of the device path's.
  6. drive the posterior path at the driver defaults (burn-in 200, 1000
     samples, 8 chains, 50 CI samples per count vector): run_em with
     posteriors -> run_gibbs -> run_ci, launch counts of all five kernels
@@ -42,7 +55,8 @@ non-zero on failure:
     data moves.
  8. calculate-expression through the CLI entry point on the golden SAMs
     (tests/goldens/aln.sam.gz; aln_pe.sam.gz with --paired-end
-    --estimate-rspd), compared with the reference RSEM goldens at the
+    --estimate-rspd), each through the fused model loop (its calls are
+    counted), compared with the reference RSEM goldens at the
     tolerances of tests/test_parity.py; then --calc-pme and --calc-ci on
     aln.sam.gz at the tolerances of tests/test_parity.py:109 and
     tests/test_parity_extra.py:189-210.
@@ -456,6 +470,142 @@ def phase_profile(label, fn):
         log(f"profile:   {t / 1e3:9.3f} ms  {c:5d}x  {n[:90]}")
 
 
+def agree(got, want, rtol: float, atol: float, what: str) -> float:
+    """Max |got - want| of two host arrays; fails outside atol + rtol |want|."""
+    import numpy as np
+
+    d = np.abs(np.asarray(got, dtype=float) - np.asarray(want, dtype=float))
+    bad = d > atol + rtol * np.abs(want)
+    if bad.any():
+        fail(f"{what}: {int(bad.sum())} entries off (max abs err "
+             f"{d.max()})")
+    return float(d.max())
+
+
+def phase_fused(ref, bundle, model0, dev, rounds: int = 10):
+    """The fused model loop against the per-round path at full width.
+    Returns (the fused run_em result, a summary for the log)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.convert import model_arrays_to_torch
+    from rsem_tpu_torch.engine import em
+    from rsem_tpu_torch.ops import conprb, model_loop
+
+    refd, m1, m2, hd = em.upload(ref, bundle, False, dev)
+    kcfg = em.kernel_config(model0, bundle, int(m1.codes.shape[1]))
+    pre = conprb.precompute_profile_indices_fused(kcfg, refd, m1, m2, hd)
+    dm = model_arrays_to_torch(model0.device_arrays(), dev)
+    data = model_loop.build_model_loop_data(
+        kcfg, refd, m1, m2, hd, pre, dm, model0.npro.c, bundle.cnt.N0,
+        float(model0.spec.probF))
+    tables = model_loop.tables_from_model(kcfg, dm)
+    theta0 = torch.as_tensor(em._theta_init(bundle.cnt, ref.M),
+                             dtype=torch.float32).to(dev)
+
+    def loop():
+        return model_loop.run_model_loop(kcfg, data, tables, theta0, rounds,
+                                         hd.n_reads, ref.M)
+
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        theta, _suff = loop()
+    except RuntimeError as exc:
+        fail(f"the fused loop synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(theta).all()) or abs(
+            float(theta.double().sum()) - 1.0) > 1e-4:
+        fail("fused loop: theta is not a finite distribution")
+    ms = [t / rounds for t in time_cuda(loop, samples=5, warm=1)]
+    log(f"fused loop: {rounds} rounds with no host sync (sync debug mode "
+        f"'error'); {ms[0]:.4f} ms per round [{ms[1]:.4f}, {ms[2]:.4f}] "
+        f"(CUDA events, median of 5)")
+    del data, pre, tables, refd, m1, hd
+    torch.cuda.empty_cache()
+
+    def run(fused):
+        return em.run_em(copy.deepcopy(model0), ref, bundle,
+                         em.EMConfig(fused_model=fused),
+                         need_posteriors=False, device=dev)
+
+    res = {True: run(True), False: run(False)}
+    walls = {True: [], False: []}
+    for i in range(WARM_PASSES):
+        for fused in ((True, False) if i % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[fused] = run(fused)
+            walls[fused].append(time.perf_counter() - t0)
+    summary = {"loop_ms_per_round": ms[0], "loop_ms_per_round_min": ms[1],
+               "loop_ms_per_round_max": ms[2]}
+    for fused, name in ((True, "fused"), (False, "per_round")):
+        w = walls[fused]
+        summary[f"{name}_warm_s"] = w
+        log(f"run_em {name}: {res[fused].rounds} rounds, warm median "
+            f"{statistics.median(w):.3f} s min {min(w):.3f} max {max(w):.3f}"
+            f" over {len(w)} passes (in turns with the other path)")
+    a, b, n1 = res[True], res[False], bundle.cnt.N1
+    if a.rounds != b.rounds:
+        fail(f"fused path took {a.rounds} rounds, per-round {b.rounds}")
+    errs = (agree(a.counts / n1, b.counts / n1, 5e-3, 1e-4, "counts/N1"),
+            agree(a.model.pro.p, b.model.pro.p, 5e-3, 1e-5, "pro.p"),
+            agree(a.model.npro.p, b.model.npro.p, 5e-3, 1e-5, "npro.p"))
+    summary["max_abs_err_counts_pro_npro"] = errs
+    log(f"fused vs per-round: max abs err counts/N1 {errs[0]:.3g}, pro.p "
+        f"{errs[1]:.3g}, npro.p {errs[2]:.3g} (rtol 5e-3; atol 1e-4 / "
+        f"1e-5)")
+    if not np.all(np.isfinite(a.counts)):
+        fail("fused path: counts are not finite")
+    phase_profile("run_em fused", lambda: run(True))
+    phase_profile("run_em per-round", lambda: run(False))
+    return a, summary
+
+
+def phase_backends(ref, bundle, model0, dev, device_res):
+    """The hybrid (C++ model rounds, K1 theta loop) and native (all on the
+    host) backends once each at full width, against the device path."""
+    import torch
+
+    from rsem_tpu_torch import native
+    from rsem_tpu_torch.engine import em
+    from rsem_tpu_torch.ops import theta
+
+    t0 = time.perf_counter()
+    native.lib()
+    log(f"native sidecar: built or loaded in {time.perf_counter() - t0:.2f}"
+        f" s ({native.library_path().parent.name}), "
+        f"{native.default_threads()} threads")
+    cnt = bundle.cnt
+    want = cnt.N1 + cnt.N0
+    out = {}
+    for backend in ("hybrid", "native"):
+        k1 = theta.theta_round.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = em.run_em(copy.deepcopy(model0), ref, bundle,
+                      em.EMConfig(backend=backend), need_posteriors=False,
+                      device=dev)
+        wall = time.perf_counter() - t0
+        k1 = theta.theta_round.launches - k1
+        if backend == "hybrid" and k1 <= 0:
+            fail("K1 was not launched under the hybrid backend")
+        if abs(r.counts.sum() - want) > 1e-6 * want:
+            fail(f"{backend}: sum(counts) {r.counts.sum()} != N1+N0 {want}")
+        err = agree(r.counts / cnt.N1, device_res.counts / cnt.N1, 5e-3,
+                    1e-4, f"{backend} counts/N1 against the device path")
+        out[backend] = {"wall_s": wall, "rounds": r.rounds,
+                        "k1_launches": k1, "threads": native.default_threads()}
+        log(f"backend {backend}: {wall:.3f} s at full width, {r.rounds} "
+            f"rounds, {native.default_threads()} C++ threads, K1 launches "
+            f"{k1}, sum(counts) {r.counts.sum():.3f}, counts/N1 max abs err "
+            f"against the device path {err:.3g}")
+    return out
+
+
 def gene_groups(M: int):
     from rsem_tpu_torch.refprep.transcripts import GroupInfo
     import numpy as np
@@ -675,11 +825,22 @@ def _read_table(path):
 
 def phase_goldens():
     """calculate-expression on the golden SAMs, against reference RSEM."""
+    from rsem_tpu_torch.ops import model_loop
     from rsem_tpu_torch.pipeline.calculate_expression import main as calc
 
     cases = (("aln", "golden", [], 0.011, 2e-4),
              ("aln_pe", "golden_pe", ["--paired-end", "--estimate-rspd"],
               0.05, 5e-4))
+    loop, fused_calls = model_loop.run_model_loop, []
+    model_loop.run_model_loop = lambda *a, **k: (
+        fused_calls.append(1), loop(*a, **k))[1]
+    try:
+        _goldens(cases, calc, fused_calls)
+    finally:
+        model_loop.run_model_loop = loop
+
+
+def _goldens(cases, calc, fused_calls):
     with tempfile.TemporaryDirectory() as d:
         for f in ("ref.seq", "ref.ti", "ref.grp"):
             shutil.copy(os.path.join(GOLD, f), d)
@@ -688,6 +849,7 @@ def phase_goldens():
                     open(os.path.join(d, f"{sam}.sam"), "wb") as fo:
                 shutil.copyfileobj(fi, fo)
             out = os.path.join(d, sam)
+            n_fused = len(fused_calls)
             t0 = time.perf_counter()
             rc = calc(["--alignments", os.path.join(d, f"{sam}.sam"),
                        os.path.join(d, "ref"), out, "-q", "--device", "cuda"]
@@ -695,6 +857,9 @@ def phase_goldens():
             secs = time.perf_counter() - t0
             if rc != 0:
                 fail(f"calculate-expression on {sam} returned {rc}")
+            if len(fused_calls) != n_fused + 1:
+                fail(f"calculate-expression on {sam} did not run the fused "
+                     f"model loop once")
             g_cnt = open(os.path.join(GOLD, f"{gold}.cnt")).read()
             o_cnt = open(os.path.join(d, f"{sam}.stat", f"{sam}.cnt")).read()
             if o_cnt.splitlines()[:3] != g_cnt.splitlines()[:3]:
@@ -709,7 +874,8 @@ def phase_goldens():
                 eff_err = max(eff_err, abs(float(o[3]) - float(g[3])))
                 cnt_err = max(cnt_err, abs(float(o[4]) - float(g[4])))
                 tpm_err = max(tpm_err, abs(float(o[5]) - float(g[5])) / 1e6)
-            log(f"golden {sam}: {secs:.2f} s, max count err {cnt_err:.4g}, "
+            log(f"golden {sam} (fused model loop): {secs:.2f} s, max count "
+                f"err {cnt_err:.4g}, "
                 f"max rel TPM err {tpm_err:.3g}, max eff-len err "
                 f"{eff_err:.3g}")
             if cnt_err >= 1.0 or tpm_err >= tpm_rel or eff_err > eff_abs:
@@ -790,6 +956,11 @@ def main() -> int:
         copy.deepcopy(model), ref, bundle, EMConfig(),
         need_posteriors=False, device=dev))
     torch.cuda.empty_cache()
+    fused_res, fused = phase_fused(ref, bundle, model, dev)
+    torch.cuda.empty_cache()
+    backends = phase_backends(ref, bundle, model, dev, fused_res)
+    del fused_res
+    torch.cuda.empty_cache()
     em, _fitted, post_launches, post_secs = phase_posterior(
         ref, bundle, model, dev)
     torch.cuda.empty_cache()
@@ -802,6 +973,7 @@ def main() -> int:
     phase_goldens()
     log(json.dumps({"run_em": {"cold_s": cold, "warm_s": warm,
                                "rounds": rounds},
+                    "fused_vs_per_round": fused, "backends": backends,
                     "posterior_s": post_secs}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -318,12 +318,18 @@ def _se_fraglen_term(cfg, model, l1, tl, fl, pos, dirs):
 def compute_log_conprb(cfg: KernelConfig, ref: RefDevice, m1: ReadsDevice,
                        m2: Optional[ReadsDevice], hits: HitsDevice,
                        model: Dict[str, torch.Tensor],
-                       pre: PreIdx) -> torch.Tensor:
+                       pre: PreIdx, *, static_only: bool = False):
     """[H] float32 log conprb; -inf encodes the reference's exact zeros.
 
     The profile term comes from the frozen indices (profile_sum_pre, K2);
     the cutoff applies to the full product and mw divides last, the
-    reference's order of operations."""
+    reference's order of operations.
+
+    With `static_only` (the fused model loop, ops/model_loop.py), returns
+    the pair (lp_static, log_mw_hit): the terms that stay fixed across the
+    model-update rounds only, with no profile term, no EPSILON cutoff, no
+    division by mw and, paired, no fragment-length term, which the loop
+    evaluates again each round."""
     rid = hits.rid.long()
     sid = hits.sid.long()
     dirs, pos = hits.dir, hits.pos
@@ -347,8 +353,9 @@ def compute_log_conprb(cfg: KernelConfig, ref: RefDevice, m1: ReadsDevice,
         masked = (fpos >= fl) | ((fpos >= msk) & (fpos < fl))
         lp = (
             log_ori[dl]
-            + log_lendist_adjusted(model["log_gld_pdf"], model["log_gld_cdf"],
-                                   cfg.gld_lb, cfg.gld_ub, ins, tl)
+            + (0.0 if static_only else log_lendist_adjusted(
+                model["log_gld_pdf"], model["log_gld_cdf"], cfg.gld_lb,
+                cfg.gld_ub, ins, tl))
             + _safe_log(lin_rspd_adjusted(cfg, model["rspd_pdf"],
                                           model["rspd_cdf"], fpos, effL, fl))
             + log_lendist_adjusted(model["log_mld_pdf"], model["log_mld_cdf"],
@@ -363,6 +370,8 @@ def compute_log_conprb(cfg: KernelConfig, ref: RefDevice, m1: ReadsDevice,
 
     lp = _where(masked | lq, NEG_INF, lp)
     log_mw = model["log_mw"][sid]
+    if static_only:
+        return lp, log_mw
     log_pro = model["log_pro"].reshape(-1)
     lp = lp + profile_sum_pre(cfg, log_pro, pre.flat1)
     if cfg.paired:

@@ -9,8 +9,9 @@ large for the shared-memory copy (gather) or needing the opt-in shared
 memory (scatter), 256-column rows, empty inputs, reads of up to 200 hits
 in the theta round, PreIdx for paired and quality-less reads, and the
 Gibbs sweep (K5) at read widths from 1 to 8192 slots, one and eight chains,
-on the layout's own table and on one 40 times as large; plus run_gibbs and
-run_ci on the card against the CPU and the goldens."""
+on the layout's own table and on one 40 times as large; plus the fused
+model loop against the CPU and under sync debug mode "error", run_em,
+run_gibbs and run_ci on the card against the CPU and the goldens."""
 
 import numpy as np
 import pytest
@@ -263,6 +264,69 @@ def test_run_em_cuda_matches_cpu(dev, paired):
     np.testing.assert_allclose(g.counts, c.counts, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(g.tpm, c.tpm, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(g.frac_hit, c.frac_hit, rtol=1e-4, atol=1e-6)
+
+
+def _model_loop_inputs(paired, device):
+    """(kcfg, loop data, round-0 tables, theta0) of the fused model loop
+    for a synthetic paired est-RSPD or single-end dataset on `device`."""
+    from rsem_tpu_torch.ops import model_loop
+
+    ref, bundle, _spec, model = synthetic_dataset(
+        n_reads=3000, M=80, read_len=36, tx_len=400, paired=paired,
+        has_qual=True, mean_extra_hits=1.5, seed=11, est_rspd=paired)
+    refd, m1, m2, hd = em.upload(ref, bundle, paired, device)
+    kcfg = em.kernel_config(model, bundle, int(m1.codes.shape[1]))
+    pre = conprb.precompute_profile_indices_fused(kcfg, refd, m1, m2, hd)
+    dm = model_arrays_to_torch(model.device_arrays(), device)
+    data = model_loop.build_model_loop_data(
+        kcfg, refd, m1, m2, hd, pre, dm, model.npro.c, bundle.cnt.N0,
+        float(model.spec.probF))
+    theta0 = torch.as_tensor(np.random.default_rng(2).dirichlet(
+        np.ones(ref.M + 1)), dtype=torch.float32).to(device)
+    return (kcfg, data, model_loop.tables_from_model(kcfg, dm), theta0,
+            hd.n_reads, ref.M)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_model_loop_cuda_matches_cpu(dev, paired):
+    """10 fused model rounds on the card against the CPU: theta and the
+    sufficient statistics to rtol 1e-5 (K3 and index_add_ sum with f64
+    atomics, in another order than the CPU; exp/log round differently),
+    with K2 and K3 launched every round."""
+    from rsem_tpu_torch.ops import model_loop
+
+    k, d, t, th, n, M = _model_loop_inputs(paired, dev)
+    n2, n3 = table.gather_sum.launches, table.scatter_add.launches
+    theta_g, suff_g = model_loop.run_model_loop(k, d, t, th, 10, n, M)
+    per_round = 4 if paired else 2  # profile and noise, per mate
+    assert table.gather_sum.launches - n2 == 10 * per_round
+    assert table.scatter_add.launches - n3 == 10 * per_round
+    k, d, t, th, n, M = _model_loop_inputs(paired, CPU)
+    theta_c, suff_c = model_loop.run_model_loop(k, d, t, th, 10, n, M)
+    torch.testing.assert_close(theta_g.cpu(), theta_c, rtol=1e-5, atol=1e-9)
+    assert set(suff_g) == set(suff_c)
+    for key, v in suff_c.items():
+        torch.testing.assert_close(suff_g[key].cpu(), v, rtol=1e-5,
+                                   atol=1e-5 * float(v.abs().max()),
+                                   msg=key)
+
+
+def test_model_loop_makes_no_host_sync(dev):
+    """The fused loop only enqueues work: 10 paired est-RSPD rounds under
+    torch.cuda.set_sync_debug_mode("error") raise on no host sync."""
+    from rsem_tpu_torch.ops import model_loop
+
+    args = _model_loop_inputs(True, dev)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        theta, suff = model_loop.run_model_loop(*args[:4], 10, *args[4:])
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert bool(torch.isfinite(theta).all())
+    assert abs(float(theta.double().sum()) - 1.0) < 1e-5
+    assert set(suff) == {"pro", "npro", "gld", "rspd"}
 
 
 @pytest.mark.parametrize("table", ["M", "relabelled"])

@@ -1,6 +1,7 @@
 """The port's run_em(device="cpu") against the JAX package's device EM on
 the same synthetic dataset, model rounds on the per-round path on both
-sides (RSEM_TPU_FUSED_MODEL=0).
+sides: EMConfig(fused_model=False) here, RSEM_TPU_FUSED_MODEL=0 there (the
+fused loop, both sides' default, is held in tests/test_torch_model_loop.py).
 
 The JAX single-device engine is called directly (as tests/test_model_loop.py
 does): the 8 virtual CPU devices of conftest.py would otherwise route
@@ -33,7 +34,8 @@ def _run_both(monkeypatch, paired, min_round, max_round):
         need_posteriors=True)
     got = tem.run_em(
         t_model, t_ref, t_bundle,
-        tem.EMConfig(min_round=min_round, max_round=max_round),
+        tem.EMConfig(min_round=min_round, max_round=max_round,
+                     fused_model=False),
         need_posteriors=True, device="cpu")
     return want, got
 

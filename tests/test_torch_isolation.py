@@ -45,6 +45,8 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 30
+    assert {"rsem_tpu_torch.native",
+            "rsem_tpu_torch.ops.model_loop"} <= set(_port_modules())
 
 
 def _imports(path):
@@ -126,8 +128,8 @@ def test_unported_options_raise(tmp_path):
                                  ExpressionConfig(**{flag: True}),
                                  device="cpu")
     ref, bundle, _spec, model = _tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_em(model, ref, bundle, EMConfig(backend="hybrid"), device="cpu")
+    with pytest.raises(ValueError, match="unknown EM backend"):
+        run_em(model, ref, bundle, EMConfig(backend="xla"), device="cpu")
 
 
 def test_cpu_wrappers_run_plain_versions():
