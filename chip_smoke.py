@@ -39,6 +39,14 @@ non-zero on failure:
     each at full width: wall time, the sidecar's thread count, K1 must
     launch under hybrid, sum(counts) = N1+N0, counts/N1 within rtol 5e-3,
     atol 1e-4 of the device path's.
+ 5c. windowed PreIdx at full width: run_em with EMConfig(preidx_budget=)
+    a quarter of the workload's whole PreIdx (>= 4 windows; the per-round
+    path), launch counts zeroed just before and read just after (K4, K2,
+    K3 and K1 must launch), against the unwindowed per-round path in the
+    same call: same rounds, theta, counts and frac_hit within rtol 1e-5,
+    the refit pro.p and npro.p within rtol 1e-5; ms per model round of
+    each path as (wall of 10 model + 10 theta rounds - wall of 10 theta
+    rounds) / 10, in turns, median of 3; peak device memory of each.
  6. drive the posterior path at the driver defaults (burn-in 200, 1000
     samples, 8 chains, 50 CI samples per count vector): run_em with
     posteriors -> run_gibbs -> run_ci, launch counts of all five kernels
@@ -55,11 +63,30 @@ non-zero on failure:
     data moves.
  8. calculate-expression through the CLI entry point on the golden SAMs
     (tests/goldens/aln.sam.gz; aln_pe.sam.gz with --paired-end
-    --estimate-rspd), each through the fused model loop (its calls are
-    counted), compared with the reference RSEM goldens at the
-    tolerances of tests/test_parity.py; then --calc-pme and --calc-ci on
-    aln.sam.gz at the tolerances of tests/test_parity.py:109 and
-    tests/test_parity_extra.py:189-210.
+    --estimate-rspd), each through native ingest and the fused model loop
+    (the calls of both are counted), compared with the reference RSEM
+    goldens at the tolerances of tests/test_parity.py; then --calc-pme
+    and --calc-ci on aln.sam.gz at the tolerances of
+    tests/test_parity.py:109 and tests/test_parity_extra.py:189-210.
+ 9. the main path at a real sample's size, nothing forced: 14M paired-end
+    150 bp reads with qualities (synthetic_arrays_fast, ~35M alignments,
+    M = 20,000), whose PreIdx (~100 GB) exceeds the card's memory; log
+    its bytes beside torch.cuda.mem_get_info, run_em with the default
+    budget (launch counts zeroed just before and read just after; more
+    than one window; sum(counts) = N1+N0, sum(TPM) = 1e6), then at half
+    that budget (counts within rtol 1e-5), then with no model rounds for
+    ms per model round; windows, peak device memory, wall times and the
+    workload's generation time.
+ 9b. the fused loop on the largest prefix of that workload whose whole
+    PreIdx stays under 98% of the default budget, and on the workload cut
+    to one hit per read (est-RSPD model, so every paired leaf of the
+    loop): one window and one fused-loop call each, peak device memory
+    and the working bytes per hit beside engine/em.WORK_BYTES_PER_HIT;
+    running out of memory fails.
+10. ingest rate: a synthetic single-end BAM of >= 1M records (multireads,
+    unmapped reads; testing.synthetic_bam, outside the timed window)
+    parsed with use_native=True and use_native=False: identical bundles,
+    records/s of each; the native parser must have run.
 
 The next-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.
@@ -91,6 +118,9 @@ WARM_PASSES = 5
 TIMING_SAMPLES = 7
 ISOFORMS_PER_GENE = 4  # gene grouping of the synthetic transcripts
 K5_SWEEPS = 3  # sweeps held against the plain version
+# the run at a real sample's size: paired-end 150 bp, ~35M alignments
+LARGE_READS, LARGE_READ_LEN = 14_000_000, 150
+INGEST_READS, INGEST_M = 420_000, 2000  # ~1.04M BAM records
 
 
 def fail(msg: str):
@@ -385,6 +415,40 @@ def phase_theta_loop(data, dev, rounds: int = 500, samples: int = 3):
                 str(k): v for k, v in per_round.items()}}
 
 
+def layout_bytes(ref, bundle) -> int:
+    """Device bytes of run_em's layout upload (ops/layout.py)."""
+    import numpy as np
+
+    M1, H, N = ref.M + 1, bundle.hits.n_hits, bundle.hits.n_reads
+    mates = [bundle.reads.mate1, bundle.reads.mate2] if bundle.paired \
+        else [bundle.reads]
+    width = max(m.codes.shape[1] for m in mates)
+    reads = sum(N * width * (2 if m.quals is not None else 1) + 5 * N
+                for m in mates)
+    hits = H * 4 * (5 if bundle.paired else 4) + (N + 1) * 8
+    return int(np.asarray(ref.codes).size + (M1 + 1) * 8 + 12 * M1 + reads
+               + hits)
+
+
+def work_per_hit(peak, ref, bundle, kcfg, budget) -> float:
+    """Device bytes per hit of the largest window at a run's peak beyond
+    the layout, RUN_BYTES_PER_HIT per hit of the run and that window's
+    PreIdx: the WORK_BYTES_PER_HIT that engine/em.py's default budget
+    leaves (budget None: the whole PreIdx, one window)."""
+    from rsem_tpu_torch.engine import em
+    from rsem_tpu_torch.ops import conprb
+
+    wins = conprb.plan_windows(kcfg, bundle.hits.read_offsets, budget)
+    big = max(wins, key=lambda w: w.h1 - w.h0 + w.r1 - w.r0)
+    rest = (peak - layout_bytes(ref, bundle)
+            - em.RUN_BYTES_PER_HIT * bundle.hits.n_hits
+            - conprb.preidx_bytes(kcfg, big.h1 - big.h0, big.r1 - big.r0))
+    return rest / max(big.h1 - big.h0, 1)
+
+
+OFF_EM_PATH = ("sweep_part",)  # counted on the EM runs, not required there
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the port, by the name its row carries."""
     from rsem_tpu_torch.ops import conprb, gibbs, table, theta
@@ -401,6 +465,7 @@ def phase_main_path(ref, bundle, model0, dev):
     import numpy as np
     import torch
 
+    from rsem_tpu_torch.engine import em as em_mod
     from rsem_tpu_torch.engine.em import EMConfig, run_em
 
     wrappers = kernel_wrappers()
@@ -413,9 +478,12 @@ def phase_main_path(ref, bundle, model0, dev):
                  need_posteriors=False, device=dev)
     cold = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    kcfg = em_mod.kernel_config(model0, bundle, READ_LEN)
     log(f"main path: run_em cold {cold:.3f} s, rounds {res.rounds}, "
-        f"launches {launches}, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB, "
+        f"{work_per_hit(peak, ref, bundle, kcfg, None):.0f} bytes per hit "
+        f"beyond the layout and PreIdx (fused loop, whole PreIdx)")
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -604,6 +672,90 @@ def phase_backends(ref, bundle, model0, dev, device_res):
             f"{k1}, sum(counts) {r.counts.sum():.3f}, counts/N1 max abs err "
             f"against the device path {err:.3g}")
     return out
+
+
+def phase_windowed(ref, bundle, model0, dev, parts: int = 4,
+                   samples: int = 3):
+    """Windowed PreIdx at full width against the unwindowed per-round
+    path. Returns (launches of the windowed run, a summary)."""
+    import torch
+
+    from rsem_tpu_torch.engine import em
+    from rsem_tpu_torch.ops import conprb
+
+    kcfg = em.kernel_config(model0, bundle, READ_LEN)
+    whole = conprb.preidx_bytes(kcfg, bundle.hits.n_hits, bundle.hits.n_reads)
+    budget = whole // parts
+    paths = {"windowed": dict(preidx_budget=budget),
+             "per_round": dict(fused_model=False)}
+
+    def run(name, posteriors=False, **kw):
+        return em.run_em(copy.deepcopy(model0), ref, bundle,
+                         em.EMConfig(**paths[name], **kw),
+                         need_posteriors=posteriors, device=dev)
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    win = run("windowed", True)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = {"windowed": torch.cuda.max_memory_allocated()}
+    for k, n in launches.items():
+        if n <= 0 and k not in OFF_EM_PATH:
+            fail(f"kernel {k} was not launched on the windowed path")
+    if win.windows < parts:
+        fail(f"budget {budget} gave {win.windows} windows, not >= {parts}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per = run("per_round", True)
+    peak["per_round"] = torch.cuda.max_memory_allocated()
+    if win.rounds != per.rounds:
+        fail(f"windowed run took {win.rounds} rounds, per-round {per.rounds}")
+    n_win = win.windows
+    work = {"windowed": work_per_hit(peak["windowed"], ref, bundle, kcfg,
+                                     budget),
+            "per_round": work_per_hit(peak["per_round"], ref, bundle, kcfg,
+                                      None)}
+    errs = {
+        "theta": agree(win.theta_raw, per.theta_raw, 1e-5, 1e-12, "theta"),
+        "counts": agree(win.counts, per.counts, 1e-5, 1e-9, "counts"),
+        "frac_hit": agree(win.frac_hit, per.frac_hit, 1e-5, 1e-12,
+                          "frac_hit"),
+        "pro.p": agree(win.model.pro.p, per.model.pro.p, 1e-5, 1e-12,
+                       "pro.p"),
+        "npro.p": agree(win.model.npro.p, per.model.npro.p, 1e-5, 1e-12,
+                        "npro.p")}
+    del win, per
+    walls = {(n, r): [] for n in paths for r in (10, 0)}
+    for i in range(samples):
+        for name in (paths if i % 2 == 0 else list(paths)[::-1]):
+            for r in (10, 0):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(name, update_model_rounds=r, min_round=r + 10,
+                    max_round=r + 10)
+                walls[(name, r)].append(time.perf_counter() - t0)
+    ms = {n: (statistics.median(walls[(n, 10)])
+              - statistics.median(walls[(n, 0)])) * 1e3 / 10 for n in paths}
+    summary = {"budget_bytes": budget, "whole_preidx_bytes": whole,
+               "windows": n_win,
+               "launches": launches, "ms_per_model_round": ms,
+               "peak_bytes": peak, "work_bytes_per_hit": work,
+               "max_abs_err": errs,
+               "walls_s": {f"{n}_{r}": w for (n, r), w in walls.items()}}
+    log(f"windowed PreIdx: {whole} bytes whole, budget {budget}, "
+        f"{summary['windows']} windows; launches {launches}; ms per model "
+        f"round windowed {ms['windowed']:.2f} / per-round "
+        f"{ms['per_round']:.2f} (median of {samples}, in turns); peak "
+        f"device memory windowed {peak['windowed'] / 2**30:.2f} GiB, "
+        f"per-round {peak['per_round'] / 2**30:.2f} GiB (beyond the layout "
+        f"and the largest window's PreIdx: {work['windowed']:.0f} / "
+        f"{work['per_round']:.0f} bytes per hit); max abs err against the "
+        f"per-round path {errs} (rtol 1e-5)")
+    phase_profile("run_em windowed", lambda: run("windowed"))
+    return launches, summary
 
 
 def gene_groups(M: int):
@@ -824,7 +976,9 @@ def _read_table(path):
 
 
 def phase_goldens():
-    """calculate-expression on the golden SAMs, against reference RSEM."""
+    """calculate-expression on the golden SAMs, against reference RSEM,
+    through native ingest (its calls are counted)."""
+    from rsem_tpu_torch.native import bamparse
     from rsem_tpu_torch.ops import model_loop
     from rsem_tpu_torch.pipeline.calculate_expression import main as calc
 
@@ -832,12 +986,21 @@ def phase_goldens():
              ("aln_pe", "golden_pe", ["--paired-end", "--estimate-rspd"],
               0.05, 5e-4))
     loop, fused_calls = model_loop.run_model_loop, []
+    sam_parse, native_calls = bamparse.parse_sam_native, []
     model_loop.run_model_loop = lambda *a, **k: (
         fused_calls.append(1), loop(*a, **k))[1]
+    bamparse.parse_sam_native = lambda *a, **k: (
+        native_calls.append(1), sam_parse(*a, **k))[1]
     try:
         _goldens(cases, calc, fused_calls)
     finally:
         model_loop.run_model_loop = loop
+        bamparse.parse_sam_native = sam_parse
+    if len(native_calls) != 4:
+        fail(f"{len(native_calls)} of the 4 golden calculate-expression runs "
+             f"went through native ingest")
+    log("goldens: all 4 calculate-expression runs parsed their SAM through "
+        "native ingest")
 
 
 def _goldens(cases, calc, fused_calls):
@@ -938,6 +1101,306 @@ def phase_posterior_goldens(d, calc):
         f"expressed transcripts inside the checks")
 
 
+def phase_large(dev, seed: int = 0):
+    """The main path at a real sample's size (phase 9). Returns its
+    launches and a summary."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.engine import em
+    from rsem_tpu_torch.ops import conprb
+    from rsem_tpu_torch.testing import synthetic_arrays_fast
+
+    t0 = time.perf_counter()
+    ref, bundle, _spec, model0 = synthetic_arrays_fast(
+        paired=True, read_len=LARGE_READ_LEN, n_reads=LARGE_READS, M=M_TX,
+        tx_len=TX_LEN, has_qual=True, seed=seed)
+    gen_s = time.perf_counter() - t0
+    H, N = bundle.hits.n_hits, bundle.hits.n_reads
+    kcfg = em.kernel_config(model0, bundle, LARGE_READ_LEN)
+    whole = conprb.preidx_bytes(kcfg, H, N)
+    free, total = torch.cuda.mem_get_info()
+    log(f"large workload: N={N} paired {LARGE_READ_LEN} bp, H={H}, "
+        f"M={ref.M} ({gen_s:.1f} s to generate); PreIdx {whole} bytes "
+        f"({whole / 1e9:.1f} GB) against {free} free of {total} device "
+        f"bytes (torch.cuda.mem_get_info)")
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = em.run_em(copy.deepcopy(model0), ref, bundle, em.EMConfig(**kw),
+                      need_posteriors=False, device=dev)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    res, wall, peak = run()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    work = work_per_hit(peak, ref, bundle, kcfg, res.preidx_budget)
+    log(f"large run_em (default budget {res.preidx_budget} bytes): "
+        f"{res.windows} windows, {res.rounds} rounds, {wall:.2f} s, peak "
+        f"device memory {peak / 2**30:.2f} GiB ({work:.0f} bytes per window "
+        f"hit beyond the layout and the window's PreIdx), launches "
+        f"{launches}")
+    for k, n in launches.items():
+        if n <= 0 and k not in OFF_EM_PATH:
+            fail(f"kernel {k} was not launched on the large run")
+    if res.windows < 2:
+        fail("the large run's PreIdx was not windowed")
+    cnt = bundle.cnt
+    want = cnt.N1 + cnt.N0
+    if not np.all(np.isfinite(res.counts)) or abs(
+            res.counts.sum() - want) > 1e-5 * want:
+        fail(f"large run: sum(counts) {res.counts.sum()} != N1+N0 {want}")
+    if abs(res.tpm.sum() - 1e6) > 1.0:
+        fail(f"large run: sum(TPM) {res.tpm.sum()} != 1e6")
+    half, wall_half, peak_half = run(preidx_budget=res.preidx_budget // 2)
+    if half.rounds != res.rounds:
+        fail(f"half budget took {half.rounds} rounds, not {res.rounds}")
+    err = agree(half.counts, res.counts, 1e-5, 1e-9,
+                "large run counts at half the budget")
+    work_half = work_per_hit(peak_half, ref, bundle, kcfg,
+                             res.preidx_budget // 2)
+    log(f"large run_em at half the budget: {half.windows} windows, "
+        f"{wall_half:.2f} s, peak {peak_half / 2**30:.2f} GiB "
+        f"({work_half:.0f} bytes per window hit), counts max abs err "
+        f"{err:.3g} (rtol 1e-5)")
+    theta_rounds = res.rounds - 10
+    _r0, wall0, _p0 = run(update_model_rounds=0, min_round=theta_rounds,
+                          max_round=theta_rounds)
+    ms_round = (wall - wall0) * 1e3 / 10
+    log(f"large run: {ms_round:.1f} ms per model round ((wall {wall:.2f} s"
+        f" - {wall0:.2f} s with no model rounds) / 10)")
+    whole_fit = phase_whole_fit(ref, bundle, kcfg, dev, res.preidx_budget,
+                                free0)
+    return launches, {
+        "reads": N, "hits": H, "read_len": LARGE_READ_LEN, "paired": True,
+        "generate_s": gen_s, "preidx_bytes": whole, "free_bytes": free,
+        "total_bytes": total, "budget_bytes": res.preidx_budget,
+        "windows": res.windows, "rounds": res.rounds, "wall_s": wall,
+        "peak_bytes": peak, "work_bytes_per_hit": work,
+        "half_budget_work_bytes_per_hit": work_half,
+        "half_budget_windows": half.windows,
+        "half_budget_wall_s": wall_half, "half_budget_peak_bytes": peak_half,
+        "half_budget_max_abs_err_counts": err,
+        "no_model_rounds_wall_s": wall0, "ms_per_model_round": ms_round,
+        "whole_fit": whole_fit}
+
+
+def prefix_bundle(bundle, n: int):
+    """The first n reads of a paired bundle and their hits (views)."""
+    import dataclasses
+
+    from rsem_tpu_torch.io.hits import HitArrays
+    from rsem_tpu_torch.io.reads import PairedReadArrays, ReadArrays
+
+    hi, h = bundle.hits, int(bundle.hits.read_offsets[n])
+    hits = HitArrays(hi.rid[:h], hi.sid[:h], hi.dir[:h], hi.pos[:h],
+                     hi.insert_len[:h], hi.read_offsets[:n + 1])
+    mates = [ReadArrays(m.codes[:n], m.lens[:n], m.quals[:n], m.lq[:n])
+             for m in (bundle.reads.mate1, bundle.reads.mate2)]
+    reads = PairedReadArrays(*mates, bundle.reads.lq[:n])
+    cnt = dataclasses.replace(bundle.cnt, N1=n, n_hits=h)
+    return dataclasses.replace(bundle, reads=reads, hits=hits, cnt=cnt)
+
+
+def first_hits_bundle(bundle):
+    """Every read of a paired bundle with its first hit alone: one hit per
+    read, the share of uniquely aligned reads in a real sample."""
+    import dataclasses
+
+    import numpy as np
+
+    from rsem_tpu_torch.io.hits import HitArrays
+
+    hi, n = bundle.hits, bundle.hits.n_reads
+    fh = hi.read_offsets[:-1]
+    hits = HitArrays(hi.rid[fh], hi.sid[fh], hi.dir[fh], hi.pos[fh],
+                     hi.insert_len[fh], np.arange(n + 1, dtype=np.int64))
+    cnt = dataclasses.replace(bundle.cnt, n_hits=n)
+    return dataclasses.replace(bundle, hits=hits, cnt=cnt)
+
+
+def phase_whole_fit(ref, bundle, kcfg, dev, budget_full: int, free0: int,
+                    target: float = 0.98):
+    """Phase 9b: the fused loop on a whole PreIdx near the default budget,
+    which holds WORK_BYTES_PER_HIT to the fused loop's working memory at
+    its largest: the largest prefix of the large workload whose whole
+    PreIdx is at most `target` of the budget run_em computes for it, and
+    the workload cut to one hit per read (all reads, or the largest such
+    prefix). Prefixes are chosen from the whole run's budget (free0: the
+    free device memory before it); run_em must plan one window and take
+    the fused loop. Returns a summary of each."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.engine import em
+    from rsem_tpu_torch.model.generative import GenerativeModel
+    from rsem_tpu_torch.model.spec import ModelSpec
+    from rsem_tpu_torch.ops import conprb, model_loop
+
+    row = conprb.preidx_row_bytes(kcfg)
+    work = em.WORK_BYTES_PER_HIT
+    # the free memory the whole run's budget saw (em.preidx_budget
+    # inverted), hence the device bytes its upload took over layout_bytes
+    seen = (budget_full * (row + work) // row + em.HEADROOM_BYTES
+            + em.RUN_BYTES_PER_HIT * bundle.hits.n_hits)
+    scale = (free0 - seen) / layout_bytes(ref, bundle)
+
+    def fits(wl, n: int, t: float) -> bool:
+        sub = prefix_bundle(wl, n)
+        h = sub.hits.n_hits
+        free = free0 - scale * layout_bytes(ref, sub)
+        budget = ((free - em.HEADROOM_BYTES - em.RUN_BYTES_PER_HIT * h)
+                  * row / (row + work))
+        return conprb.preidx_bytes(kcfg, h, n) <= t * budget
+
+    spec = ModelSpec(model_type=bundle.read_type, seed_len=25,
+                     has_polya=False, est_rspd=True)
+    model0 = GenerativeModel(spec, ref)
+    model0.estimate_from_stats(bundle.stats)
+
+    def fit_run(label, wl):
+        for t in (target, target - 0.03, target - 0.06):
+            lo, hi = 1, wl.hits.n_reads
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                lo, hi = (mid, hi) if fits(wl, mid, t) else (lo, mid - 1)
+            sub = prefix_bundle(wl, lo)
+            calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                res = em.run_em(copy.deepcopy(model0), ref, sub,
+                                em.EMConfig(), need_posteriors=False,
+                                device=dev)
+            except torch.cuda.OutOfMemoryError as exc:
+                fail(f"fused loop ({label}) at {lo} reads ran out of device "
+                     f"memory (peak {torch.cuda.max_memory_allocated()} "
+                     f"bytes): {exc}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if res.windows == 1:
+                break
+            log(f"whole-fit ({label}) prefix of {lo} reads at {t} of the "
+                f"estimated budget was windowed ({res.windows}); trying a "
+                "smaller one")
+        else:
+            fail(f"whole-fit ({label}): no prefix under the default budget "
+                 "ran in one window")
+        peak = torch.cuda.max_memory_allocated()
+        total = torch.cuda.mem_get_info()[1]
+        if calls != [1]:
+            fail(f"the whole-fit run ({label}) made {len(calls)} fused-loop "
+                 "calls, not 1")
+        h = sub.hits.n_hits
+        if not np.all(np.isfinite(res.counts)) or abs(
+                res.counts.sum() - lo) > 1e-5 * lo:
+            fail(f"whole-fit run ({label}): sum(counts) {res.counts.sum()} "
+                 f"!= N1 {lo}")
+        whole = conprb.preidx_bytes(kcfg, h, lo)
+        w = work_per_hit(peak, ref, sub, kcfg, None)
+        log(f"whole-fit run ({label}; paired, est-RSPD, fused loop): {lo} "
+            f"reads, {h} hits, PreIdx {whole} bytes = "
+            f"{whole / res.preidx_budget:.4f} of the default budget "
+            f"{res.preidx_budget}; {res.rounds} rounds, {wall:.2f} s, peak "
+            f"{peak} of {total} device bytes ({peak / total:.4f}); {w:.1f} "
+            f"working bytes per hit (WORK_BYTES_PER_HIT "
+            f"{em.WORK_BYTES_PER_HIT})")
+        return {"reads": lo, "hits": h, "preidx_bytes": whole,
+                "budget_bytes": res.preidx_budget, "windows": res.windows,
+                "rounds": res.rounds, "wall_s": wall, "peak_bytes": peak,
+                "total_bytes": total, "work_bytes_per_hit": w}
+
+    loop, calls = model_loop.run_model_loop, []
+    model_loop.run_model_loop = lambda *a, **k: (calls.append(1),
+                                                 loop(*a, **k))[1]
+    try:
+        return {"prefix": fit_run("prefix", bundle),
+                "one_hit_per_read": fit_run("one hit per read",
+                                            first_hits_bundle(bundle))}
+    finally:
+        model_loop.run_model_loop = loop
+
+
+def bundles_equal(a, b) -> bool:
+    """Two AlignmentBundles hold the same arrays, counts and statistics."""
+    import numpy as np
+
+    def same(x, y):
+        return (x is None and y is None) or (
+            x is not None and y is not None and x.dtype == y.dtype
+            and np.array_equal(x, y))
+
+    mates = [(a.reads, b.reads)] if not a.paired else [
+        (a.reads.mate1, b.reads.mate1), (a.reads.mate2, b.reads.mate2)]
+    return (vars(a.cnt) == vars(b.cnt) and same(a.omit, b.omit)
+            and all(same(getattr(a.hits, f), getattr(b.hits, f)) for f in (
+                "rid", "sid", "dir", "pos", "insert_len", "read_offsets"))
+            and all(same(getattr(x, f), getattr(y, f)) for x, y in mates
+                    for f in ("codes", "lens", "quals", "lq"))
+            and all(vars(a.stats[c]).keys() == vars(b.stats[c]).keys()
+                    and all(np.array_equal(np.asarray(u), np.asarray(
+                        vars(b.stats[c])[k])) for k, u in
+                        vars(a.stats[c]).items()) for c in range(3)))
+
+
+def phase_ingest(d: str, n_reads: int = INGEST_READS):
+    """Records/s of the native and the Python BAM ingest (phase 10)."""
+    from rsem_tpu_torch.io.sam import parse_alignments
+    from rsem_tpu_torch.native import bamparse
+    from rsem_tpu_torch.testing import synthetic_bam
+
+    path = os.path.join(d, "ingest.bam")
+    t0 = time.perf_counter()
+    n_rec = synthetic_bam(path, n_reads, M=INGEST_M)
+    gen_s = time.perf_counter() - t0
+    if n_rec < 1_000_000:
+        fail(f"the ingest BAM has {n_rec} records, fewer than 1M")
+    names = [""] + [f"t{i}" for i in range(INGEST_M)]
+    t0 = time.perf_counter()
+    bamparse.lib()
+    build_s = time.perf_counter() - t0
+    calls, parse = [], bamparse.parse_bam_native
+    bamparse.parse_bam_native = lambda *a, **k: (calls.append(1),
+                                                 parse(*a, **k))[1]
+    try:
+        t0 = time.perf_counter()
+        nat = parse_alignments(path, names, 1, False, 25, use_native=True)
+        nat_s = time.perf_counter() - t0
+    finally:
+        bamparse.parse_bam_native = parse
+    if calls != [1]:
+        fail("the native BAM parser did not run")
+    t0 = time.perf_counter()
+    py = parse_alignments(path, names, 1, False, 25, use_native=False)
+    py_s = time.perf_counter() - t0
+    if not bundles_equal(nat, py):
+        fail("native and Python ingest gave different bundles")
+    lib_path = bamparse.build()
+    out = {"records": n_rec, "reads": n_reads, "bam_bytes":
+           os.path.getsize(path), "generate_s": gen_s, "build_s": build_s,
+           "libdeflate": bamparse.uses_libdeflate(lib_path),
+           "threads": os.cpu_count(), "native_s": nat_s, "python_s": py_s,
+           "native_records_per_s": n_rec / nat_s,
+           "python_records_per_s": n_rec / py_s}
+    log(f"ingest: {n_rec} records ({os.path.getsize(path)} BAM bytes, "
+        f"{gen_s:.1f} s to write); sidecar built in {build_s:.2f} s "
+        f"(libdeflate {out['libdeflate']}, {os.cpu_count()} threads); native "
+        f"{nat_s:.3f} s = {n_rec / nat_s:,.0f} records/s, Python "
+        f"{py_s:.2f} s = {n_rec / py_s:,.0f} records/s; bundles identical "
+        f"(N1 {nat.cnt.N1}, N0 {nat.cnt.N0}, {nat.cnt.n_hits} hits)")
+    return out
+
+
 def main() -> int:
     _name, mem_rate, op_rate = phase_device()
     import torch
@@ -961,20 +1424,31 @@ def main() -> int:
     backends = phase_backends(ref, bundle, model, dev, fused_res)
     del fused_res
     torch.cuda.empty_cache()
+    win_launches, windowed = phase_windowed(ref, bundle, model, dev)
+    torch.cuda.empty_cache()
     em, _fitted, post_launches, post_secs = phase_posterior(
         ref, bundle, model, dev)
     torch.cuda.empty_cache()
     rows.append(phase_k5(ref, bundle, em, dev, mem_rate, op_rate))
+    phase_goldens()
+    del ref, bundle, model, em, _fitted
+    torch.cuda.empty_cache()
+    large_launches, large = phase_large(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        ingest = phase_ingest(d)
     for r in rows:
         # EM kernels: launches of the main path; K5: of the posterior path
         r["launches"] = launches.get(r["name"], post_launches[r["name"]])
         r["posterior_launches"] = post_launches[r["name"]]
+        r["windowed_launches"] = win_launches[r["name"]]
+        r["large_run_launches"] = large_launches[r["name"]]
         r["kernel_ms"] = r["ms"]
-    phase_goldens()
     log(json.dumps({"run_em": {"cold_s": cold, "warm_s": warm,
                                "rounds": rounds},
                     "fused_vs_per_round": fused, "backends": backends,
-                    "posterior_s": post_secs}))
+                    "windowed": windowed, "posterior_s": post_secs,
+                    "large_run": large, "ingest": ingest}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,13 @@ refprep, io, model, constants, utils/seq, testing
           copies of rsem_tpu's host modules (numpy only); the port imports
           nothing from rsem_tpu
 utils     device selection (`resolve_device`), timing
-ops       device layout, conprb/PreIdx, E-step, theta rounds, and the
-          hand-written CUDA kernels' wrappers (sources in csrc/, built by
-          ops/_build.py on first use)
-engine    EM
+ops       device layout, conprb/PreIdx (whole or in windows), E-step,
+          theta rounds, and the hand-written CUDA kernels' wrappers
+          (sources in csrc/, built by ops/_build.py on first use)
+native    the C++ host sidecars, built with g++ on first use: BAM/SAM
+          ingest and BGZF compression (bamparse), the EM backends
+          hybrid and native (suffstats)
+engine    EM, Gibbs, CI
 pipeline  calculate-expression driver
 convert   carries host objects and model tables across
 

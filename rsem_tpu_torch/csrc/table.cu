@@ -128,7 +128,7 @@ extern "C" int rsem_gather_sum(const float* table, int64_t n_table,
   return (int)cudaGetLastError();
 }
 
-// acc[t] += w[r] for every idx[r, c] == t < size (acc: zeroed f64 [size]).
+// acc[t] += w[r] for every idx[r, c] == t < size (acc: f64 [size]).
 extern "C" int rsem_scatter_add(const int32_t* idx, int64_t rows, int cols,
                                 const float* w, int size, double* acc,
                                 cudaStream_t stream) {

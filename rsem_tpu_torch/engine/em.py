@@ -5,17 +5,24 @@ Counterpart of rsem_tpu/engine/em.py, single device. Three backends:
 * `device` (and `auto`): everything from the layout upload to the final
   counts runs on one device:
     1. upload the reference, reads and hits;
-    2. build PreIdx once (kernel K4);
-    3. the model-update rounds: where `ops.model_loop.fused_supported`
-       holds, all of them in the fused loop (`run_model_loop`: conprbs
-       from frozen per-hit terms + profile and noise gather-sums (K2),
-       E-step, sufficient-statistic scatters (K3), f32 table finishes, no
-       host read between rounds), then one host float64 refit from the
-       last round's statistics; elsewhere (poly(A) with paired reads or
-       est-RSPD, ...) or with `EMConfig(fused_model=False)` the per-round
-       path (em.py:639-662 there): E-step, scatter (K3), host refit and
-       new conprbs (K2) every round;
-    4. freeze the conprbs, scaled per read by their max;
+    2. build PreIdx once (kernel K4) where it fits its byte budget
+       (`EMConfig.preidx_budget`; by default the device's free memory
+       less a headroom on CUDA, no limit on the CPU); where it does not,
+       cut the reads into windows (ops/conprb.plan_windows), each
+       window's PreIdx under the budget;
+    3. the model-update rounds: with a whole PreIdx where
+       `ops.model_loop.fused_supported` holds, all of them in the fused
+       loop (`run_model_loop`: conprbs from frozen per-hit terms + profile
+       and noise gather-sums (K2), E-step, sufficient-statistic scatters
+       (K3), f32 table finishes, no host read between rounds), then one
+       host float64 refit from the last round's statistics; elsewhere
+       (windowed PreIdx, poly(A) with paired reads or est-RSPD, ...) or
+       with `EMConfig(fused_model=False)` the per-round path (em.py:639-662
+       there): conprbs (K2), E-step and statistics scatter (K3) every
+       round, window after window when windowed (each window's PreIdx
+       built by K4 and freed), then the host refit on the totals;
+    4. the final model's conprbs (window after window when windowed),
+       frozen and scaled per read by their max;
     5. theta-only rounds with the reference's stop rule (kernel K1);
     6. final counts (and posteriors when asked for).
 * `hybrid`: the model rounds and the final conprbs in the C++ sidecar
@@ -54,14 +61,37 @@ from ..model.generative import GenerativeModel
 from ..ops import model_loop
 from ..ops import theta as theta_ops
 from ..ops.conprb import (
-    compute_log_conprb,
-    compute_log_noise_conprb,
+    hits_window,
+    plan_windows,
     precompute_profile_indices_fused,
-    preidx_bytes,
+    preidx_row_bytes,
+    window_conprbs,
+    window_preidx,
 )
-from ..ops.estep import estep_fracs, suffstats
+from ..ops.estep import (
+    estep_window,
+    expected_counts,
+    suffstats,
+    table_stats,
+)
 from ..ops.layout import HitsDevice, KernelConfig, ReadsDevice, RefDevice
 from ..utils.device import DeviceLike, fetch64, resolve_device
+
+# The default PreIdx budget on CUDA leaves this headroom of the free device
+# memory to the rest of the pass: a fixed part; RUN_BYTES_PER_HIT for every
+# hit of the run (the int64 sids, the round's posteriors and the final
+# conprbs of _model_rounds); and WORK_BYTES_PER_HIT of working memory for
+# every hit of a window beside that window's PreIdx rows (the conprb,
+# E-step and statistics temporaries; the fused loop's per-hit data).
+# chip_smoke.py measures the working memory with torch.cuda.
+# max_memory_allocated (phases 4, 5c, 9 and 9b). On the H100 the most was
+# 189.4 bytes per hit: the paired est-RSPD fused loop on a whole PreIdx
+# at one hit per read, where per-read working memory weighs most (178.8
+# at 2.5 hits per read and 98% of the budget; PERF.md). The constant
+# keeps a third above that.
+HEADROOM_BYTES = 2 << 30
+RUN_BYTES_PER_HIT = 16
+WORK_BYTES_PER_HIT = 256
 
 
 @dataclass
@@ -74,6 +104,10 @@ class EMConfig:
     # device backend: the fused model loop wherever it is supported; False
     # keeps the per-round path (tests and chip_smoke.py compare the two)
     fused_model: bool = True
+    # device backend: PreIdx bytes one window may hold (ops/conprb.
+    # plan_windows); None: the free device memory less a headroom on CUDA,
+    # no limit on the CPU
+    preidx_budget: Optional[int] = None
 
     def __post_init__(self):
         if self.min_round > self.max_round:
@@ -97,6 +131,8 @@ class EMResult:
     frac_noise: Optional[np.ndarray] = None
     log_conprb: Optional[np.ndarray] = None
     log_ncp: Optional[np.ndarray] = None
+    windows: int = 1  # PreIdx windows of the device backend
+    preidx_budget: Optional[int] = None  # the budget they were cut under
 
 
 def _bchange(theta_new: np.ndarray, theta_old: np.ndarray):
@@ -172,33 +208,87 @@ def _fetch_stats(suff) -> dict:
     return out
 
 
-def _model_rounds(model, kcfg, refd, m1, m2, hd, pre, dev_model, theta,
-                  n_rounds: int, verbose: bool, n0: float, device):
-    """The per-round model path: each round an E-step, the sufficient-
-    statistic scatter (K3), the host float64 refit and new conprbs (K2).
-    Returns (theta f64, log_conprb, log_ncp)."""
-    sid, rid = hd.sid.long(), hd.rid.long()
-    log_conprb = compute_log_conprb(kcfg, refd, m1, m2, hd, dev_model, pre)
-    log_ncp = compute_log_noise_conprb(kcfg, m1, m2, dev_model, pre)
+def preidx_budget(em_cfg: EMConfig, kcfg: KernelConfig,
+                  device: torch.device, n_hits: int) -> Optional[int]:
+    """The PreIdx bytes one window may hold: em_cfg.preidx_budget where
+    set; else on CUDA the device's free memory (the caching allocator's
+    unused blocks included) less HEADROOM_BYTES, RUN_BYTES_PER_HIT per hit
+    of the run and WORK_BYTES_PER_HIT per hit of the window; else (the CPU)
+    no limit."""
+    if em_cfg.preidx_budget is not None:
+        return int(em_cfg.preidx_budget)
+    if device.type != "cuda":
+        return None
+    free, _total = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    avail = free - HEADROOM_BYTES - RUN_BYTES_PER_HIT * n_hits
+    row = preidx_row_bytes(kcfg)
+    return max(0, avail * row // (row + WORK_BYTES_PER_HIT))
+
+
+def _window_pre(pre, kcfg, refd, m1, m2, hd, w):
+    """The whole PreIdx where there is one, else window w's, built (K4)."""
+    return pre if pre is not None else window_preidx(kcfg, refd, m1, m2,
+                                                     hd, w)
+
+
+def _final_conprbs(kcfg, refd, m1, m2, hd, windows, pre, dev_model):
+    """The model's log conprb [H] and log noise conprb [N], window after
+    window when PreIdx is windowed (`pre` None)."""
+    dev = hd.rid.device
+    lcp = torch.empty(hd.n_hits, dtype=torch.float32, device=dev)
+    lnp = torch.empty(hd.n_reads, dtype=torch.float32, device=dev)
+    for w in windows:
+        pw = _window_pre(pre, kcfg, refd, m1, m2, hd, w)
+        lcp[w.h0:w.h1], lnp[w.r0:w.r1] = window_conprbs(
+            kcfg, refd, m1, m2, hd, dev_model, w, pw)
+        del pw  # free this window's PreIdx before the next is built
+    return lcp, lnp
+
+
+def _model_rounds(model, kcfg, refd, m1, m2, hd, windows, pre, dev_model,
+                  theta, n_rounds: int, verbose: bool, n0: float, device):
+    """The per-round model path. Each round, window after window: conprbs
+    from the current model (K2), the E-step into the round's posteriors,
+    the profile and noise scatters (K3) added into one float64 total; then
+    the expected counts and the other statistics over all hits and the
+    host float64 refit. `pre`: the whole PreIdx (one window), or None:
+    each window's PreIdx is built (K4) in each pass and freed after it.
+    Returns (theta f64, the final model's log_conprb, log_ncp)."""
+    M = len(theta) - 1
+    probF = float(model.spec.probF)
+    sid = hd.sid.long()
     for rounds in range(1, n_rounds + 1):
         log_theta = torch.as_tensor(_safe_log_np(theta),
                                     dtype=torch.float32).to(device)
-        out = estep_fracs(log_theta, sid, rid, log_conprb, log_ncp,
-                          hd.n_reads, len(theta) - 1)
-        c = out.counts.clone()
+        frac_hit = torch.empty(hd.n_hits, dtype=torch.float32, device=device)
+        frac_noise = torch.empty(hd.n_reads, dtype=torch.float32,
+                                 device=device)
+        tables = None
+        for w in windows:
+            pw = _window_pre(pre, kcfg, refd, m1, m2, hd, w)
+            lcp, lnp = window_conprbs(kcfg, refd, m1, m2, hd, dev_model, w,
+                                      pw)
+            out = estep_window(log_theta, hits_window(hd, w), w, lcp, lnp, M)
+            frac_hit[w.h0:w.h1] = out.frac_hit
+            frac_noise[w.r0:w.r1] = out.frac_noise
+            tables = table_stats(kcfg, pw, out.frac_hit, out.frac_noise,
+                                 tables)
+            del pw, out, lcp, lnp  # free before the next window's build
+        c = expected_counts(frac_hit, frac_noise, sid, M)
         c[0] += n0
         new_theta = fetch64(c / c.sum())
-        suff = suffstats(kcfg, refd, m1, m2, hd, out.frac_hit,
-                         out.frac_noise, float(model.spec.probF), pre)
+        suff = suffstats(kcfg, refd, m1, m2, hd, frac_hit, frac_noise, probF,
+                         tables=tables)
         model.finish_round(_fetch_stats(suff))
         dev_model = model_arrays_to_torch(model.device_arrays(), device)
-        log_conprb = compute_log_conprb(kcfg, refd, m1, m2, hd, dev_model,
-                                        pre)
-        log_ncp = compute_log_noise_conprb(kcfg, m1, m2, dev_model, pre)
         bchg, _ = _bchange(new_theta, theta)
         theta = new_theta
         if verbose:
             print(f"ROUND = {rounds}, bChange = {bchg:.6g}")
+    log_conprb, log_ncp = _final_conprbs(kcfg, refd, m1, m2, hd, windows,
+                                         pre, dev_model)
     return theta, log_conprb, log_ncp
 
 
@@ -213,19 +303,18 @@ def _run_em_device(model, ref, bundle, em_cfg: EMConfig,
     kcfg = kernel_config(model, bundle, int(m1.codes.shape[1]))
     n_reads = hd.n_reads
 
-    need = preidx_bytes(kcfg, hd.n_hits, n_reads)
-    if device.type == "cuda":
-        free, _total = torch.cuda.mem_get_info(device)
-        if need > free:
-            raise MemoryError(
-                f"PreIdx needs {need} bytes, the device has {free} free")
-    pre = precompute_profile_indices_fused(kcfg, refd, m1, m2, hd)
+    budget = preidx_budget(em_cfg, kcfg, device, hd.n_hits)
+    windows = plan_windows(kcfg, bundle.hits.read_offsets, budget)
+    pre = precompute_profile_indices_fused(kcfg, refd, m1, m2, hd) \
+        if len(windows) == 1 else None
+    if em_cfg.verbose and pre is None:
+        print(f"PreIdx in {len(windows)} windows of at most {budget} bytes")
 
     theta = _theta_init(cnt, M)
     dev_model = model_arrays_to_torch(model.device_arrays(), device)
     n_model_rounds = min(em_cfg.update_model_rounds, em_cfg.max_round)
     min_fl = int(np.min(ref.full_len[1:])) if M >= 1 else 0
-    if em_cfg.fused_model and n_model_rounds > 0 and \
+    if pre is not None and em_cfg.fused_model and n_model_rounds > 0 and \
             model_loop.fused_supported(kcfg, spec.has_polya, min_fl):
         # every model-update round in one stream of device work; the
         # float64 reference refit runs once, on the last round's statistics
@@ -239,12 +328,11 @@ def _run_em_device(model, ref, bundle, em_cfg: EMConfig,
         del mdata
         model.finish_round(_fetch_stats(suff))
         dev_model = model_arrays_to_torch(model.device_arrays(), device)
-        log_conprb = compute_log_conprb(kcfg, refd, m1, m2, hd, dev_model,
-                                        pre)
-        log_ncp = compute_log_noise_conprb(kcfg, m1, m2, dev_model, pre)
+        log_conprb, log_ncp = _final_conprbs(kcfg, refd, m1, m2, hd,
+                                             windows, pre, dev_model)
     else:
         theta, log_conprb, log_ncp = _model_rounds(
-            model, kcfg, refd, m1, m2, hd, pre, dev_model, theta,
+            model, kcfg, refd, m1, m2, hd, windows, pre, dev_model, theta,
             n_model_rounds, em_cfg.verbose, float(N0), device)
         theta_t = torch.as_tensor(theta, dtype=torch.float32).to(device)
 
@@ -262,8 +350,10 @@ def _run_em_device(model, ref, bundle, em_cfg: EMConfig,
     if need_posteriors:
         fh, fn = theta_ops.final_fracs(theta_t, data)
         frac_hit, frac_noise = fetch64(fh), fetch64(fn)
-    return _finish(model, fetch64(theta_t), counts, rounds, frac_hit,
-                   frac_noise, lcp_np, lnp_np, need_posteriors)
+    res = _finish(model, fetch64(theta_t), counts, rounds, frac_hit,
+                  frac_noise, lcp_np, lnp_np, need_posteriors)
+    res.windows, res.preidx_budget = len(windows), budget
+    return res
 
 
 def _run_em_hybrid(model, ref, bundle, em_cfg: EMConfig,

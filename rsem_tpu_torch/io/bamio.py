@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import gzip
 import struct
-import zlib
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -397,15 +396,16 @@ class BamRec:
 _BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000"
 )
-_BGZF_HDR = struct.Struct("<BBBBIBBHBBHH")
 
 
 class BgzfWriter:
     """BGZF writer with virtual-offset tracking (for BAI indexing).
 
-    Complete 65280-byte blocks are batched and compressed by the
-    in-process zlib loop; a tell_virtual() call forces the batch out first
-    so virtual offsets stay exact."""
+    Complete 65280-byte blocks are batched and compressed in parallel by
+    the C++ sidecar (native/bamparse.bgzf_compress; the reference uses
+    hts_set_threads, BamWriter.h:72), which raises if it cannot be built;
+    a tell_virtual() call forces the batch out first so virtual offsets
+    stay exact. close() sends the last, partial block the same way."""
 
     MAX_BLOCK = 0xFF00
     BATCH_BYTES = 8 << 20
@@ -434,28 +434,17 @@ class BgzfWriter:
     def _flush_pending(self):
         if not self.pending:
             return
-        while self.pending:
-            chunk = bytes(self.pending[: self.MAX_BLOCK])
-            del self.pending[: self.MAX_BLOCK]
-            self._write_member(chunk)
+        from ..native.bamparse import bgzf_compress
 
-    def _write_member(self, chunk: bytes):
-        comp = zlib.compressobj(self.level, zlib.DEFLATED, -15)
-        cdata = comp.compress(chunk) + comp.flush()
-        bsize = len(cdata) + 25  # total block = 18 hdr + cdata + 8 tail; field = total-1
-        block = (
-            _BGZF_HDR.pack(31, 139, 8, 4, 0, 0, 0xFF, 6, 66, 67, 2, bsize)
-            + cdata
-            + struct.pack("<II", zlib.crc32(chunk), len(chunk))
-        )
-        self.f.write(block)
-        self.coffset += len(block)
+        out = bgzf_compress(self.pending, self.level)
+        self.f.write(out)
+        self.coffset += len(out)
+        self.pending.clear()
 
     def close(self):
+        self.pending += self.buf
+        self.buf.clear()
         self._flush_pending()
-        if self.buf:
-            self._write_member(bytes(self.buf))
-            self.buf.clear()
         self.f.write(_BGZF_EOF)
         self.f.close()
 

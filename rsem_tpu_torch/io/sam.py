@@ -3,7 +3,8 @@
 This is the rsem-parse-alignments equivalent (reference: parseIt.cpp,
 SamParser.h) built for an in-memory pipeline: instead of category FASTQ files
 and a .dat hit file, it produces ReadArrays/HitArrays plus streaming
-ReadStats, with optional interop serialization.
+ReadStats, with optional interop serialization. The record loop runs in the
+C++ sidecar (native/bamparse.py) by default, and in Python on request.
 
 BAM support is a self-contained BGZF + binary record decoder (the reference
 vendors htslib; this framework needs no external alignment library for
@@ -185,6 +186,7 @@ class BamReader:
     """Streaming BAM reader (BGZF = concatenated gzip members)."""
 
     def __init__(self, path: str):
+        self.path = path
         self.f = gzip.open(path, "rb")
         magic = self.f.read(4)
         if magic != b"BAM\x01":
@@ -362,6 +364,97 @@ def _check_cigar(rec: SamRecord) -> bool:
     )
 
 
+def _padded_from_flat(flat: np.ndarray, lens: np.ndarray, L: int) -> np.ndarray:
+    """[sum(lens)] flat payload -> [N, L] zero-padded matrix (vectorized)."""
+    n = len(lens)
+    if n and flat.size == n * L:
+        # uniform read length: the flat payload IS the matrix (zero-copy)
+        return flat.reshape(n, L)
+    mat = np.zeros((n, L), dtype=np.uint8)
+    mask = np.arange(L)[None, :] < lens[:, None]
+    mat[mask] = flat
+    return mat
+
+
+def _assemble_native(
+    res,
+    read_type: int,
+    has_polya: bool,
+    seed_len: int,
+    omit: np.ndarray,
+) -> AlignmentBundle:
+    """Build the AlignmentBundle from the native sidecar's flat arrays;
+    byte-identical to the Python record loop
+    (tests/test_torch_native_ingest.py)."""
+    paired = read_type >= 2
+    has_qual = read_type in (1, 3)
+
+    # per-category streaming stats: computed by the C++ walker alongside
+    # the record parse (bamparse.cpp stat_add_mate; exact ReadStats
+    # semantics, held in tests/test_torch_native_ingest.py)
+    stats = {}
+    for cat in range(3):
+        st = ReadStats()
+        ns = res.stats[cat]
+        need = int(np.flatnonzero(ns.len_counts).max(initial=0))
+        st._grow(need)
+        st.len_counts[: len(ns.len_counts[: need + 1])] = ns.len_counts[
+            : need + 1
+        ].astype(np.float64)
+        st.q_init = ns.q_init.astype(np.float64)
+        st.q_tran = ns.q_tran.astype(np.float64)
+        st.noise = ns.noise.astype(np.float64)
+        st.n_reads = int(ns.n_reads)
+        stats[cat] = st
+
+    # N1 reads (low-quality flags also from the walker)
+    n1 = res.n1
+    L1 = int(res.len1.max()) if n1 else 1
+    codes1 = _padded_from_flat(res.seq1, res.len1, L1)
+    quals1 = _padded_from_flat(res.qual1, res.len1, L1) if has_qual else None
+    lens1 = res.len1.astype(np.int32)
+    m1 = ReadArrays(codes1, lens1, quals1, res.lq1.astype(bool))
+    if paired:
+        L2 = int(res.len2.max()) if n1 else 1
+        codes2 = _padded_from_flat(res.seq2, res.len2, L2)
+        quals2 = _padded_from_flat(res.qual2, res.len2, L2) if has_qual else None
+        lens2 = res.len2.astype(np.int32)
+        m2 = ReadArrays(codes2, lens2, quals2, res.lq2.astype(bool))
+        reads = PairedReadArrays.build(m1, m2, seed_len)
+    else:
+        reads = m1
+
+    # hits CSR
+    nh = res.nh.astype(np.int64)
+    offsets = np.zeros(n1 + 1, dtype=np.int64)
+    np.cumsum(nh, out=offsets[1:])
+    rid = np.repeat(np.arange(n1, dtype=np.int32), nh)
+    ssid = res.sid
+    hits = HitArrays(
+        rid=rid,
+        sid=np.abs(ssid).astype(np.int32),
+        dir=(ssid < 0).astype(np.int8),
+        pos=res.pos.astype(np.int32),
+        insert_len=res.ins.astype(np.int32) if paired else None,
+        read_offsets=offsets,
+    )
+
+    vals, freqs = np.unique(nh, return_counts=True)
+    hist = {int(v): int(f) for v, f in zip(vals, freqs)}
+    cnt = CntStats(
+        N0=res.cat0.n,
+        N1=n1,
+        N2=res.cat2.n,
+        n_unique=0,
+        n_multi=0,
+        n_iso_multi=res.n_iso_multi,
+        n_hits=hits.n_hits,
+        read_type=read_type,
+        hist=hist,
+    )
+    return AlignmentBundle(read_type, reads, hits, stats, cnt, omit)
+
+
 def parse_alignments(
     path: str,
     transcript_names: Sequence[str],
@@ -369,6 +462,7 @@ def parse_alignments(
     has_polya: bool,
     seed_len: int,
     filter_tag: str = "XM",
+    use_native: bool = True,
     fai: Optional[str] = None,
 ) -> AlignmentBundle:
     """Parse a SAM/BAM of transcript alignments (reference: parseIt.cpp).
@@ -377,7 +471,12 @@ def parse_alignments(
     transcript_ids, or seqnames in allele-specific mode
     (Transcripts.h:105-143).
 
-    Both BAM and SAM-text inputs run the pure-Python record loop below.
+    With use_native (the default), BAM and SAM-text inputs run the record
+    loop in the C++ sidecar (native/bamparse.py: parse_bam_native,
+    parse_sam_native), built with g++ at first use; if it cannot be built
+    the call raises with the compiler's message. use_native=False runs the
+    pure-Python loop below, which is also the oracle the sidecar is held
+    against.
     """
     paired = read_type >= 2
     has_qual = read_type in (1, 3)
@@ -416,6 +515,22 @@ def parse_alignments(
         appeared[sid] = True
     omit = np.flatnonzero(~appeared[1:]) + 1
     target_lens = np.asarray(reader.target_lens, dtype=np.int64)
+
+    if use_native:
+        from ..native import bamparse
+
+        reader.close()
+        if isinstance(reader, BamReader):
+            # reader.path: a CRAM input's decoded BAM
+            res = bamparse.parse_bam_native(
+                reader.path, paired, has_qual, e2i, target_lens, filter_tag,
+                has_polya=has_polya, seed_len=seed_len)
+        else:
+            res = bamparse.parse_sam_native(
+                path, paired, has_qual, reader.target_names, e2i,
+                target_lens, filter_tag, has_polya=has_polya,
+                seed_len=seed_len)
+        return _assemble_native(res, read_type, has_polya, seed_len, omit)
 
     stats = {i: ReadStats() for i in range(3)}
     Ncat = [0, 0, 0]

@@ -1,17 +1,18 @@
-"""The C++ host sidecar of the hybrid and native EM backends.
+"""The C++ host sidecars: the hybrid and native EM backends (here) and
+BAM/SAM ingest (native/bamparse.py).
 
-Counterpart of rsem_tpu/native/__init__.py for suffstats.cpp (the BAM
-ingest library, bamparse.cpp, is not ported yet). Three entry points, each
+Counterpart of rsem_tpu/native/__init__.py for suffstats.cpp. Three entry
+points, each
 multithreaded C++ in float64: `native_conprb` (the reference's getConPrb /
 getNoiseConPrb), `native_em_count_step` (one E-step over cached conprbs)
 and `native_suffstats` (the sufficient statistics that
 GenerativeModel.finish_round takes).
 
-The library is built with g++ at first use into
+Each library is built with g++ at first use (`build_library`) into
 `rsem_tpu_torch/_build/native-<hash of the source and flags>/` (listed in
 .gitignore) and reused after; nothing is written beside the source. There
-is no fallback: without g++, or if the build fails, the call raises.
-Nothing here runs at import time.
+is no fallback: without g++, or if the build fails, the call raises with
+the compiler's message. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -46,36 +47,49 @@ _CTYPES = {"q": ctypes.c_int64, "i": ctypes.c_int, "d": ctypes.c_double,
 _lib: Optional[ctypes.CDLL] = None
 
 
+def library_path_for(src: Path, lib_name: str, flags) -> Path:
+    """Where the build of `src` with these g++ flags lives."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(src.read_bytes())
+    return BUILD_ROOT / f"native-{h.hexdigest()[:16]}" / lib_name
+
+
+def build_library(src: Path, lib_name: str, flags, libs=()) -> Path:
+    """Compile `src` into a shared library with g++ (`libs` go after the
+    source) unless this exact build exists already. Returns its path;
+    raises RuntimeError with the compiler's output if g++ is missing or
+    fails."""
+    out = library_path_for(src, lib_name, [*flags, *libs])
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: the C++ sidecar {src.name} is "
+                           "built with it")
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
+    try:
+        res = subprocess.run([gxx, *flags, str(src), "-o",
+                              str(tmp / lib_name), *libs],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed for {src.name}:\n{res.stdout}")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp / lib_name, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_ROOT / f"native-{h.hexdigest()[:16]}" / LIB_NAME
+    return library_path_for(SRC, LIB_NAME, GXX_FLAGS)
 
 
 def build() -> Path:
     """Compile suffstats.cpp with g++ unless this exact build exists
     already. Returns the library path; raises if g++ is missing or fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found: the hybrid and native EM "
-                           "backends build their C++ sidecar with it")
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
-    try:
-        res = subprocess.run([gxx, *GXX_FLAGS, str(SRC), "-o",
-                              str(tmp / LIB_NAME)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"g++ failed for {SRC.name}:\n{res.stdout}")
-        out.parent.mkdir(parents=True, exist_ok=True)
-        os.replace(tmp / LIB_NAME, out)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return out
+    return build_library(SRC, LIB_NAME, GXX_FLAGS)
 
 
 def lib() -> ctypes.CDLL:

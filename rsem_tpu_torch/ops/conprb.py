@@ -7,30 +7,37 @@ work in log space (float32 log-probabilities stay exact far below the
 linear-float32 underflow point, so the reference's EPSILON=1e-300 cutoffs
 become a -690.776 logit cutoff).
 
-The port always builds PreIdx, the round-invariant per-(hit, position)
-profile-table indices, once per run (kernel K4, csrc/preidx.cu); every
-conprb and sufficient-statistic pass then reduces to a table gather-sum
-(K2) or scatter-add (K3) over those indices (ops/table.py). The TPU
-package's direct path (`_profile_logprob`, the reference walk each round)
-has no counterpart here.
+The port always goes through PreIdx, the round-invariant per-(hit,
+position) profile-table indices (kernel K4, csrc/preidx.cu); every conprb
+and sufficient-statistic pass then reduces to a table gather-sum (K2) or
+scatter-add (K3) over those indices (ops/table.py). Where the whole PreIdx
+fits its byte budget it is built once per run. Where it does not, the
+reads are cut into windows (`plan_windows`: contiguous read ranges at read
+boundaries and their contiguous hit ranges, each window's PreIdx under the
+budget) and each pass builds one window's PreIdx at a time
+(`window_preidx`) and frees it before the next. This takes the place of
+the TPU package's path without PreIdx (`_profile_logprob`, the reference
+walk in every round), which has no counterpart here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import _build
 from .layout import HitsDevice, KernelConfig, ReadsDevice, RefDevice
-from .table import gather_sum, padded_table, scatter_add
+from .table import gather_sum, padded_table
 
 NEG_INF = float("-inf")
 LOG_EPS = math.log(1e-300)  # reference EPSILON cutoff, in logits
 PRE_COLS = 128  # minimum PreIdx position-axis width
 PLAIN_CHUNK = 1 << 18  # hits per step of the plain PreIdx build
 MLD_CHUNK = 1 << 16  # hits per step of the fragment-length marginalisation
+NOISE_CHUNK = 1 << 18  # reads per step of the noise-index build
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -43,25 +50,89 @@ def pre_cols(max_read_len: int) -> int:
     return max(PRE_COLS, _ceil_to(max_read_len, 128))
 
 
+def preidx_row_bytes(cfg: KernelConfig) -> int:
+    """PreIdx bytes per hit and per read (all mates)."""
+    mates = 2 if cfg.paired else 1
+    return pre_cols(cfg.max_read_len) * 4 * mates
+
+
 def preidx_bytes(cfg: KernelConfig, n_hits: int, n_reads: int) -> int:
     """Device footprint of PreIdx."""
-    mates = 2 if cfg.paired else 1
-    return (n_hits + n_reads) * pre_cols(cfg.max_read_len) * 4 * mates
+    return (n_hits + n_reads) * preidx_row_bytes(cfg)
+
+
+class Window(NamedTuple):
+    """Reads [r0, r1) and their hits [h0, h1) (the CSR order by read)."""
+
+    r0: int
+    r1: int
+    h0: int
+    h1: int
+
+
+def plan_windows(cfg: KernelConfig, read_offsets: np.ndarray,
+                 budget: Optional[int]) -> List[Window]:
+    """Cut the reads into windows at read boundaries, each window's PreIdx
+    (its hits' rows and its reads' noise rows) at most `budget` bytes and
+    the windows of about one size. A read whose own rows exceed the budget
+    gets a window of its own. `budget` None: one window.
+
+    read_offsets: [N+1] int64, the hits of read r are
+    read_offsets[r]:read_offsets[r+1]."""
+    off = np.asarray(read_offsets, dtype=np.int64)
+    n = len(off) - 1
+    if n <= 0:
+        return [Window(0, 0, 0, 0)]
+    row = preidx_row_bytes(cfg)
+    # PreIdx bytes of reads [0, r): row * (hits before r + r)
+    cum = (off + np.arange(n + 1, dtype=np.int64)) * row
+    if budget is None or cum[-1] <= budget:
+        return [Window(0, n, int(off[0]), int(off[-1]))]
+    budget = max(int(budget), 0)
+    # as many windows as the budget needs, of about one size: a cut may
+    # overshoot the even share by at most one read's rows
+    n_win = -(-int(cum[-1]) // max(budget, 1))
+    biggest = int(np.max(np.diff(off))) + 1
+    cap = min(budget, -(-int(cum[-1]) // n_win) + biggest * row)
+    out, r0 = [], 0
+    while r0 < n:
+        r1 = int(np.searchsorted(cum, cum[r0] + cap, side="right")) - 1
+        r1 = min(max(r1, r0 + 1), n)
+        out.append(Window(r0, r1, int(off[r0]), int(off[r1])))
+        r0 = r1
+    return out
+
+
+def hits_window(hits: HitsDevice, w: Window) -> HitsDevice:
+    """The window's hits: contiguous 1-D views that keep their global read
+    ids (rid indexes the whole read arrays) and the global read_offsets of
+    the window's reads."""
+    sl = slice(w.h0, w.h1)
+    return HitsDevice(
+        rid=hits.rid[sl], sid=hits.sid[sl], dir=hits.dir[sl],
+        pos=hits.pos[sl],
+        insert_len=hits.insert_len[sl] if hits.insert_len is not None
+        else None,
+        read_offsets=hits.read_offsets[w.r0:w.r1 + 1])
+
+
+def reads_window(mate: Optional[ReadsDevice], w: Window
+                 ) -> Optional[ReadsDevice]:
+    """The window's reads of one mate (contiguous row views)."""
+    if mate is None:
+        return None
+    sl = slice(w.r0, w.r1)
+    return ReadsDevice(codes=mate.codes[sl], lens=mate.lens[sl],
+                       quals=mate.quals[sl] if mate.quals is not None
+                       else None, lq=mate.lq[sl])
 
 
 # --------------------------------------------------------------------- #
 # distribution lookups (vector, log and linear)                          #
 # --------------------------------------------------------------------- #
-def _where(cond, a, b):
-    """torch.where where one of a/b may be a Python scalar (which takes
-    the tensor's dtype, as a weak scalar does in JAX)."""
-    if not torch.is_tensor(a):
-        a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
-    elif not torch.is_tensor(b):
-        b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
-    return torch.where(cond, a, b)
-
-
+# torch.where takes a Python scalar as a scalar argument of the tensor's
+# dtype (as a weak scalar is in JAX): no host-to-device copy, hence no host
+# sync on CUDA; every where below relies on that.
 def _nonzero(x):
     """x with exact zeros replaced by 1 (a safe divisor)."""
     return torch.where(x == 0, torch.ones_like(x), x)
@@ -73,7 +144,7 @@ def log_lendist_adjusted(log_pdf, log_cdf, lb: int, ub: int, length, refL):
     valid = (length > lb) & (length <= ub) & (refL > lb)
     denom = log_cdf[(refL.clamp(max=ub) - lb).clamp(0, span).long()]
     num = log_pdf[(length - lb).clamp(0, span).long()]
-    return _where(valid & (num > NEG_INF) & (denom > NEG_INF), num - denom,
+    return torch.where(valid & (num > NEG_INF) & (denom > NEG_INF), num - denom,
                   NEG_INF)
 
 
@@ -82,14 +153,14 @@ def lin_lendist_adjusted(pdf, cdf, lb: int, ub: int, length, refL):
     valid = (length > lb) & (length <= ub) & (refL > lb)
     denom = cdf[(refL.clamp(max=ub) - lb).clamp(0, span).long()]
     num = pdf[(length - lb).clamp(0, span).long()]
-    return _where(valid & (denom > 0), num / _nonzero(denom), 0.0)
+    return torch.where(valid & (denom > 0), num / _nonzero(denom), 0.0)
 
 
 def log_lendist_pdf(log_pdf, lb: int, ub: int, length):
     """log of LenDist::getProb."""
     span = ub - lb
     valid = (length > lb) & (length <= ub)
-    return _where(valid, log_pdf[(length - lb).clamp(0, span).long()],
+    return torch.where(valid, log_pdf[(length - lb).clamp(0, span).long()],
                   NEG_INF)
 
 
@@ -106,18 +177,18 @@ def lin_rspd_adjusted(cfg: KernelConfig, rspd_pdf, rspd_cdf, fpos, effL,
     """RSPD::getAdjustedProb (RSPD.h:70-75); out-of-support positions -> 0."""
     ok = (fpos >= 0) & (fpos < full_len) & (effL >= 1)
     if not cfg.est_rspd:
-        return _where(ok, 1.0 / effL.clamp(min=1).to(torch.float32), 0.0)
+        return torch.where(ok, 1.0 / effL.clamp(min=1).to(torch.float32), 0.0)
     fpos_c = torch.minimum(fpos.clamp(min=0), full_len - 1)
     effL_c = torch.minimum(effL.clamp(min=1), full_len)
     denom = rspd_eval_cdf(rspd_pdf, rspd_cdf, cfg.B, effL_c, full_len)
     num = rspd_eval_cdf(rspd_pdf, rspd_cdf, cfg.B, fpos_c + 1, full_len) \
         - rspd_eval_cdf(rspd_pdf, rspd_cdf, cfg.B, fpos_c, full_len)
-    out = _where(denom > 0, num / _nonzero(denom), 0.0)
-    return _where(ok, out, 0.0)
+    out = torch.where(denom > 0, num / _nonzero(denom), 0.0)
+    return torch.where(ok, out, 0.0)
 
 
 def _safe_log(x):
-    return _where(x > 0, torch.log(torch.where(x > 0, x, torch.ones_like(x))),
+    return torch.where(x > 0, torch.log(torch.where(x > 0, x, torch.ones_like(x))),
                   NEG_INF)
 
 
@@ -218,29 +289,47 @@ preidx_flat.launches = 0
 
 
 def noise_flat(cfg: KernelConfig, mate: ReadsDevice) -> torch.Tensor:
-    """[N, pre_cols] int32 noise-profile indices (sentinel npro_keys)."""
+    """[N, pre_cols] int32 noise-profile indices (sentinel npro_keys),
+    composed in place in the output; the one temporary, a bool mask, is
+    built NOISE_CHUNK reads at a time."""
     N, L = mate.codes.shape
     sentinel = cfg.npro_keys()
-    readc = mate.codes.to(torch.int32)
-    flat = mate.quals.to(torch.int32) * 5 + readc if cfg.has_qual else readc
-    j = torch.arange(L, device=readc.device)[None, :]
-    valid = j < mate.lens[:, None]
+    dev = mate.codes.device
     out = torch.full((N, pre_cols(cfg.max_read_len)), sentinel,
-                     dtype=torch.int32, device=readc.device)
-    out[:, :L] = torch.where(valid, flat, torch.full_like(flat, sentinel))
+                     dtype=torch.int32, device=dev)
+    j = torch.arange(L, device=dev)[None, :]
+    for a in range(0, N, NOISE_CHUNK):
+        sl = slice(a, a + NOISE_CHUNK)
+        o = out[sl, :L]
+        o.copy_(mate.codes[sl])
+        if cfg.has_qual:
+            o.add_(mate.quals[sl], alpha=5)
+        o.masked_fill_(j >= mate.lens[sl, None], sentinel)
     return out
+
+
+def window_preidx(cfg: KernelConfig, ref: RefDevice, m1: ReadsDevice,
+                  m2: Optional[ReadsDevice], hits: HitsDevice,
+                  w: Window) -> PreIdx:
+    """One window's PreIdx: K4 over the window's hits (rows h0:h1), which
+    read the whole read arrays through their global rids, and the noise
+    indices of the window's reads (rows r0:r1) with plain tensor ops."""
+    hw = hits_window(hits, w)
+    return PreIdx(
+        flat1=preidx_flat(cfg, ref, m1, hw),
+        flat2=preidx_flat(cfg, ref, m2, hw, mate2=True) if cfg.paired
+        else None,
+        nflat1=noise_flat(cfg, reads_window(m1, w)),
+        nflat2=noise_flat(cfg, reads_window(m2, w)) if cfg.paired else None)
 
 
 def precompute_profile_indices_fused(cfg: KernelConfig, ref: RefDevice,
                                      m1: ReadsDevice,
                                      m2: Optional[ReadsDevice],
                                      hits: HitsDevice) -> PreIdx:
-    """PreIdx for all mates: the profile indices through K4 (fused with
-    the key composition), the noise indices with plain tensor ops."""
-    f1 = preidx_flat(cfg, ref, m1, hits)
-    f2 = preidx_flat(cfg, ref, m2, hits, mate2=True) if cfg.paired else None
-    return PreIdx(flat1=f1, flat2=f2, nflat1=noise_flat(cfg, m1),
-                  nflat2=noise_flat(cfg, m2) if cfg.paired else None)
+    """PreIdx for all mates, hits and reads: one window over everything."""
+    return window_preidx(cfg, ref, m1, m2, hits,
+                         Window(0, hits.n_reads, 0, hits.n_hits))
 
 
 # --------------------------------------------------------------------- #
@@ -253,29 +342,11 @@ def profile_sum_pre(cfg: KernelConfig, log_pro_flat: torch.Tensor,
     return gather_sum(padded_table(log_pro_flat, size), flat)
 
 
-def profile_scatter_pre(cfg: KernelConfig, pre: PreIdx,
-                        frac_hit: torch.Tensor) -> torch.Tensor:
-    """[pro_keys] posterior-weighted profile counts from frozen indices."""
-    size = cfg.pro_keys()
-    w = frac_hit.to(torch.float32).contiguous()
-    acc = scatter_add(pre.flat1, w, size)
-    if cfg.paired:
-        acc = acc + scatter_add(pre.flat2, w, size)
-    return acc
-
-
 def noise_sum_pre(cfg: KernelConfig, log_npro_flat: torch.Tensor,
                   nflat: torch.Tensor) -> torch.Tensor:
     """[N] per-read noise-profile log-prob from frozen indices."""
     size = cfg.npro_keys()
     return gather_sum(padded_table(log_npro_flat, size), nflat)
-
-
-def noise_scatter_pre(cfg: KernelConfig, nflat: torch.Tensor,
-                      frac_noise: torch.Tensor) -> torch.Tensor:
-    """[npro_keys] posterior-weighted noise counts from frozen indices."""
-    return scatter_add(nflat, frac_noise.to(torch.float32).contiguous(),
-                       cfg.npro_keys())
 
 
 # --------------------------------------------------------------------- #
@@ -311,7 +382,7 @@ def _se_fraglen_term(cfg, model, l1, tl, fl, pos, dirs):
                               effL, flc)
         m = lin_lendist_adjusted(model["mld_pdf"], model["mld_cdf"],
                                  cfg.mld_lb, cfg.mld_ub, l1c, fr)
-        out[sl] = _safe_log(_where(in_r, g * r * m, 0.0).sum(1))
+        out[sl] = _safe_log(torch.where(in_r, g * r * m, 0.0).sum(1))
     return out
 
 
@@ -368,7 +439,7 @@ def compute_log_conprb(cfg: KernelConfig, ref: RefDevice, m1: ReadsDevice,
         masked = (seed_pos >= fl) | ((seed_pos >= msk) & (seed_pos < fl))
         lp = log_ori[dl] + _se_fraglen_term(cfg, model, l1, tl, fl, pos, dirs)
 
-    lp = _where(masked | lq, NEG_INF, lp)
+    lp = torch.where(masked | lq, NEG_INF, lp)
     log_mw = model["log_mw"][sid]
     if static_only:
         return lp, log_mw
@@ -376,8 +447,8 @@ def compute_log_conprb(cfg: KernelConfig, ref: RefDevice, m1: ReadsDevice,
     lp = lp + profile_sum_pre(cfg, log_pro, pre.flat1)
     if cfg.paired:
         lp = lp + profile_sum_pre(cfg, log_pro, pre.flat2)
-    lp = _where(lp < LOG_EPS, NEG_INF, lp)
-    return _where(log_mw > NEG_INF, lp - log_mw, NEG_INF)
+    lp = torch.where(lp < LOG_EPS, NEG_INF, lp)
+    return torch.where(log_mw > NEG_INF, lp - log_mw, NEG_INF)
 
 
 def compute_log_noise_conprb(cfg: KernelConfig, m1: ReadsDevice,
@@ -401,5 +472,17 @@ def compute_log_noise_conprb(cfg: KernelConfig, m1: ReadsDevice,
             m2.lens < cfg.seed_len)
     else:
         lq = m1.lq
-    lp = _where(lq, NEG_INF, lp)
-    return _where(lp < LOG_EPS, NEG_INF, lp)
+    lp = torch.where(lq, NEG_INF, lp)
+    return torch.where(lp < LOG_EPS, NEG_INF, lp)
+
+
+def window_conprbs(cfg: KernelConfig, ref: RefDevice, m1: ReadsDevice,
+                   m2: Optional[ReadsDevice], hits: HitsDevice,
+                   model: Dict[str, torch.Tensor], w: Window, pre: PreIdx):
+    """(log conprb [h1-h0], log noise conprb [r1-r0]) of one window, from
+    its PreIdx `pre` (window_preidx): the window's slices of what
+    compute_log_conprb and compute_log_noise_conprb give for all hits."""
+    return (compute_log_conprb(cfg, ref, m1, m2, hits_window(hits, w),
+                               model, pre),
+            compute_log_noise_conprb(cfg, reads_window(m1, w),
+                                     reads_window(m2, w), model, pre))

@@ -8,6 +8,13 @@ sorted read ids. The sufficient statistics (SingleModel::update,
 PairedEndQModel::update) scatter the posteriors into the model tables: the
 profile and noise-profile tables through the PreIdx scatter-add (K3), the
 fragment-length and RSPD histograms with plain tensor ops.
+
+Where PreIdx is built one window of reads at a time (ops/conprb.py
+`plan_windows`), the E-step runs per window (`estep_window`: a read's hits
+all lie in its window and theta is fixed for the round), and so do the
+profile and noise-profile scatters (`table_stats`, which adds each
+window's counts into one float64 total); the expected counts and the
+per-hit histograms run once over the round's whole posteriors.
 """
 
 from __future__ import annotations
@@ -20,11 +27,10 @@ from .conprb import (
     LOG_EPS,
     NEG_INF,
     PreIdx,
-    _where,
-    noise_scatter_pre,
-    profile_scatter_pre,
+    Window,
 )
 from .layout import HitsDevice, KernelConfig, ReadsDevice, RefDevice
+from .table import scatter_add
 
 ORIVALVE = 0.1  # constants.ORIVALVE: strand threshold of the RSPD update
 
@@ -42,43 +48,92 @@ def estep_fracs(log_theta: torch.Tensor, sid: torch.Tensor,
     lw = log_theta[sid] + log_conprb
     lw0 = log_theta[0] + log_ncp
     # reference zeroes absolute weights below EPSILON (EM.cpp:213-222)
-    lw = _where(lw < LOG_EPS, NEG_INF, lw)
-    lw0 = _where(lw0 < LOG_EPS, NEG_INF, lw0)
+    lw = torch.where(lw < LOG_EPS, NEG_INF, lw)
+    lw0 = torch.where(lw0 < LOG_EPS, NEG_INF, lw0)
 
     seg_max = torch.full((n_reads,), NEG_INF, dtype=lw.dtype,
                          device=lw.device)
     seg_max.scatter_reduce_(0, rid, lw, "amax", include_self=True)
     m = torch.maximum(seg_max, lw0)
-    m_safe = _where(m > NEG_INF, m, 0.0)
-    e_h = _where(lw > NEG_INF, torch.exp(lw - m_safe[rid]), 0.0)
-    e_0 = _where(lw0 > NEG_INF, torch.exp(lw0 - m_safe), 0.0)
+    m_safe = torch.where(m > NEG_INF, m, 0.0)
+    e_h = torch.where(lw > NEG_INF, torch.exp(lw - m_safe[rid]), 0.0)
+    e_0 = torch.where(lw0 > NEG_INF, torch.exp(lw0 - m_safe), 0.0)
     denom = torch.zeros_like(e_0).index_add_(0, rid, e_h) + e_0
-    denom_safe = _where(denom > 0, denom, 1.0)
+    denom_safe = torch.where(denom > 0, denom, 1.0)
     frac_hit = e_h / denom_safe[rid]
     frac_noise = e_0 / denom_safe
 
+    return EStepOut(frac_hit, frac_noise,
+                    expected_counts(frac_hit, frac_noise, sid, M))
+
+
+def expected_counts(frac_hit: torch.Tensor, frac_noise: torch.Tensor,
+                    sid: torch.Tensor, M: int) -> torch.Tensor:
+    """[M+1] expected counts (without +N0): frac_hit summed by sid, the
+    noise fractions into slot 0."""
     counts = torch.zeros(M + 1, dtype=frac_hit.dtype, device=frac_hit.device)
     counts.index_add_(0, sid, frac_hit)
     counts[0] += frac_noise.sum()
-    return EStepOut(frac_hit, frac_noise, counts)
+    return counts
+
+
+def estep_window(log_theta: torch.Tensor, hits: HitsDevice, w: Window,
+                 log_conprb: torch.Tensor, log_ncp: torch.Tensor,
+                 M: int) -> EStepOut:
+    """The E-step of one window: `hits` are the window's hits (global
+    rids, ops/conprb.hits_window), log_conprb [h1-h0] and log_ncp [r1-r0]
+    its conprbs. The read ids are rebased to the window's first read, so
+    frac_noise is [r1-r0] and counts sum over the window only."""
+    return estep_fracs(log_theta, hits.sid.long(), hits.rid.long() - w.r0,
+                       log_conprb, log_ncp, w.r1 - w.r0, M)
+
+
+def table_stats(cfg: KernelConfig, pre: PreIdx, frac_hit: torch.Tensor,
+                frac_noise: torch.Tensor,
+                acc: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The profile and noise-profile counts (K3 over PreIdx) as float64
+    {"pro": [pro_keys], "npro": [npro_keys]}, added into `acc` (the counts
+    of the round's earlier windows) when given. Over one window of a
+    windowed PreIdx, `pre` and the posteriors are the window's."""
+    if acc is None:
+        dev = frac_hit.device
+        acc = {"pro": torch.zeros(cfg.pro_keys(), dtype=torch.float64,
+                                  device=dev),
+               "npro": torch.zeros(cfg.npro_keys(), dtype=torch.float64,
+                                   device=dev)}
+    w = frac_hit.to(torch.float32).contiguous()
+    wn = frac_noise.to(torch.float32).contiguous()
+    for idx, weights, key in ((pre.flat1, w, "pro"), (pre.flat2, w, "pro"),
+                              (pre.nflat1, wn, "npro"),
+                              (pre.nflat2, wn, "npro")):
+        if idx is not None:
+            scatter_add(idx, weights, acc[key].shape[0], acc[key])
+    return acc
 
 
 def suffstats(cfg: KernelConfig, ref: RefDevice, m1: ReadsDevice,
               m2: Optional[ReadsDevice], hits: HitsDevice,
               frac_hit: torch.Tensor, frac_noise: torch.Tensor,
-              probF: float, pre: PreIdx) -> Dict[str, torch.Tensor]:
-    """Posterior-weighted count tensors for this round's model refresh."""
+              probF: float, pre: Optional[PreIdx] = None,
+              tables: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
+    """Posterior-weighted count tensors for this round's model refresh.
+
+    The profile and noise tables come from `tables` (table_stats, summed
+    over the windows of a windowed PreIdx) or else from the whole PreIdx
+    `pre`; the fragment-length and RSPD histograms from all hits."""
+    if tables is None:
+        tables = table_stats(cfg, pre, frac_hit, frac_noise)
     out: Dict[str, torch.Tensor] = {}
     pro_size = cfg.pro_len * 25
-    pc = profile_scatter_pre(cfg, pre, frac_hit)
+    pc = tables["pro"].to(torch.float32)
     # slots beyond the effective key window are unreachable: zero-pad
     pc = torch.nn.functional.pad(pc, (0, pro_size - pc.shape[0]))
     out["pro"] = pc.reshape(cfg.pro_len, 5, 5)
 
     npro_size = 500 if cfg.has_qual else 5
-    nc = noise_scatter_pre(cfg, pre.nflat1, frac_noise)
-    if cfg.paired:
-        nc = nc + noise_scatter_pre(cfg, pre.nflat2, frac_noise)
+    nc = tables["npro"].to(torch.float32)
     nc = torch.nn.functional.pad(nc, (0, npro_size - nc.shape[0]))
     out["npro"] = nc.reshape(100, 5) if cfg.has_qual else nc
 
@@ -113,7 +168,7 @@ def _rspd_stats(cfg, ref, m1, hits, frac_hit, probF):
         else:
             fpos = tl - pos - l1
             use = (dirs == 1) & (fpos < fl)
-    frac = _where(use, frac_hit, 0.0)
+    frac = torch.where(use, frac_hit, 0.0)
     full = fl.clamp(min=1).to(torch.float32)
     lo = fpos.to(torch.float32) / full
     hi = (fpos.to(torch.float32) + 1.0) / full

@@ -16,6 +16,8 @@ is a plain `index_add_` here.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
@@ -67,38 +69,50 @@ def gather_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_sum.launches = 0
 
 
-def scatter_add_plain(idx: torch.Tensor, w: torch.Tensor,
-                      size: int) -> torch.Tensor:
+def scatter_add_plain(idx: torch.Tensor, w: torch.Tensor, size: int,
+                      acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """f32 [size]: f64 index_add_ of each row's weight over its indices
-    (sentinels land in slot `size`, which is cut off)."""
-    acc = torch.zeros(size + 1, dtype=torch.float64, device=idx.device)
-    acc.index_add_(0, idx.reshape(-1).long().clamp(max=size),
-                   w.double().repeat_interleave(idx.shape[1]))
-    return acc[:size].to(torch.float32)
+    (sentinels land in slot `size`, which is cut off); with `acc`, added
+    into that f64 [size] table, which is returned."""
+    full = torch.zeros(size + 1, dtype=torch.float64, device=idx.device)
+    full.index_add_(0, idx.reshape(-1).long().clamp(max=size),
+                    w.double().repeat_interleave(idx.shape[1]))
+    if acc is not None:
+        return acc.add_(full[:size])
+    return full[:size].to(torch.float32)
 
 
-def scatter_add(idx: torch.Tensor, w: torch.Tensor, size: int) -> torch.Tensor:
+def scatter_add(idx: torch.Tensor, w: torch.Tensor, size: int,
+                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """f32 [size]: counts[t] += w[r] for every idx[r, c] == t < size.
 
     idx: [rows, cols] int32; w: f32 [rows] per-ROW weight (broadcast across
-    the row's columns). Indices >= size (sentinels) are dropped."""
+    the row's columns). Indices >= size (sentinels) are dropped. acc: a
+    float64 [size] table that the counts are added into and that is
+    returned (the passes over a windowed PreIdx sum their windows there);
+    without it the counts come back as float32."""
     _check_idx(idx)
     if w.dtype != torch.float32 or w.shape != (idx.shape[0],):
         raise ValueError("w must be float32 [rows]")
     if w.device != idx.device:
         raise ValueError("idx and w must be on one device")
+    if acc is not None and (acc.dtype != torch.float64 or acc.shape != (
+            size,) or acc.device != idx.device or not acc.is_contiguous()):
+        raise ValueError("acc must be a contiguous float64 [size] tensor on "
+                         "idx's device")
     if idx.device.type == "cpu":
-        return scatter_add_plain(idx, w, size)
+        return scatter_add_plain(idx, w, size, acc)
     if idx.device.type != "cuda":
         raise ValueError(f"unsupported device {idx.device}")
     w = w.contiguous()
     rows, cols = idx.shape
-    acc = torch.zeros(size, dtype=torch.float64, device=idx.device)
+    out = acc if acc is not None else torch.zeros(
+        size, dtype=torch.float64, device=idx.device)
     _build.check(_build.lib().rsem_scatter_add(
-        idx.data_ptr(), rows, cols, w.data_ptr(), size, acc.data_ptr(),
+        idx.data_ptr(), rows, cols, w.data_ptr(), size, out.data_ptr(),
         _build.stream_of(idx)), "scatter_add")
     scatter_add.launches += 1
-    return acc.to(torch.float32)
+    return out if acc is not None else out.to(torch.float32)
 
 
 scatter_add.launches = 0

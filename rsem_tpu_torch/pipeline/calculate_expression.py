@@ -200,7 +200,7 @@ def calculate_expression(
     with timer.stage("parse-alignments"):
         bundle = parse_alignments(
             alignments, names, cfg.read_type, ref.has_polya, cfg.seed_length,
-            filter_tag=cfg.tag, fai=cfg.fai,
+            filter_tag=cfg.tag, use_native=True, fai=cfg.fai,
         )
     sid2gid = np.concatenate([[0], gi.gids_of(np.arange(1, ts.M + 1))])
     finalize_cnt(bundle, sid2gid)

@@ -302,3 +302,80 @@ def relabel_layout(layout, table, factor: int = 10):
     wide[:, ::factor] = table
     return (GibbsLayout(parts, factor * layout.M, layout.n_reads,
                         layout.n_noise_fixed), wide)
+
+
+_NIBBLES = np.array([1, 2, 4, 8], dtype=np.uint8)  # BAM codes of A C G T
+
+
+def synthetic_bam(path: str, n_reads: int, M: int = 2000,
+                  read_len: int = 100, mean_hits: float = 2.5,
+                  frac_n0: float = 0.02, seed: int = 0,
+                  chunk_reads: int = 1 << 18) -> int:
+    """A single-end BAM for ingest runs, encoded in bulk with numpy and
+    written with the port's BamRecWriter: `n_reads` reads of random bases
+    (quality 40), a `frac_n0` share unmapped, the others aligned
+    min(1 + Geometric(1 / (mean_hits - 1)), 20) times to targets t0..t{M-1}
+    of 2,000 bases, forward or reverse. Each read's records are adjacent:
+    the mapped reads first, then the unmapped ones. Returns the number of
+    records."""
+    from .io.bamio import BamHeader, BamRecWriter
+
+    if read_len % 2 or read_len >= 2000:
+        raise ValueError("read_len must be even and below 2,000")
+    rng = np.random.default_rng(seed)
+    tx_len = 2000
+    mapped = rng.random(n_reads) >= frac_n0
+    k = np.minimum(1 + rng.geometric(1.0 / (mean_hits - 1.0),
+                                     size=n_reads), 20)
+    header = BamHeader("@HD\tVN:1.0\n", [f"t{i}" for i in range(M)],
+                       [tx_len] * M)
+
+    def records(ids, n_hits, with_cigar):
+        """Encoded records of reads `ids`, each repeated n_hits times."""
+        L = read_len
+        fields = [("bs", "<i4"), ("ref", "<i4"), ("pos", "<i4"),
+                  ("lrn", "u1"), ("mapq", "u1"), ("bin", "<u2"),
+                  ("ncig", "<u2"), ("flag", "<u2"), ("lseq", "<i4"),
+                  ("nref", "<i4"), ("npos", "<i4"), ("tlen", "<i4"),
+                  ("name", "u1", (10,))]
+        fields += [("cig", "<u4")] if with_cigar else []
+        fields += [("seq", "u1", (L // 2,)), ("qual", "u1", (L,))]
+        dt = np.dtype(fields)
+        nib = _NIBBLES[rng.integers(0, 4, size=(len(ids), L))]
+        seq = (nib[:, 0::2] << 4) | nib[:, 1::2]
+        digits = (ids[:, None] // 10 ** np.arange(7, -1, -1)) % 10 + 48
+        name = np.concatenate([np.full((len(ids), 1), ord("r")), digits,
+                               np.zeros((len(ids), 1))], axis=1)
+        row = np.repeat(np.arange(len(ids)), n_hits)
+        rec = np.zeros(len(row), dtype=dt)
+        rec["bs"] = dt.itemsize - 4
+        rec["lrn"] = 10
+        rec["lseq"] = L
+        rec["nref"], rec["npos"] = -1, -1
+        rec["name"] = name[row]
+        rec["seq"] = seq[row]
+        rec["qual"] = 40
+        if with_cigar:
+            j = np.arange(len(row)) - np.repeat(np.cumsum(n_hits) - n_hits,
+                                                n_hits)
+            rec["ref"] = rng.integers(0, M, size=len(row))
+            pos = rng.integers(0, tx_len - L, size=len(row))
+            rec["pos"] = pos
+            rec["bin"] = 4681 + (pos >> 14)
+            rec["ncig"] = 1
+            rec["flag"] = np.where((ids[row] + j) % 3 == 0, 0, 16)
+            rec["cig"] = L << 4  # L M
+        else:
+            rec["ref"], rec["pos"], rec["bin"], rec["flag"] = -1, -1, 4680, 4
+        return rec.tobytes()
+
+    n_rec = 0
+    with BamRecWriter(path, header, level=1) as w:
+        for with_cigar in (True, False):
+            ids = np.flatnonzero(mapped == with_cigar)
+            for a in range(0, len(ids), chunk_reads):
+                sl = ids[a:a + chunk_reads]
+                n_hits = k[sl] if with_cigar else np.ones(len(sl), np.int64)
+                w.write_raw(records(sl, n_hits, with_cigar))
+                n_rec += int(n_hits.sum())
+    return n_rec

@@ -32,7 +32,32 @@ CPU = torch.device("cpu")
 CASES = [(False, True), (False, False), (True, True), (True, False)]
 
 
-def _both(paired, has_qual):
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """Each configuration's two sides and JAX conprbs, built once per
+    module (_both) and shared by its four tests."""
+    return {}
+
+
+def _both(cases, paired, has_qual):
+    if (paired, has_qual) not in cases:
+        cases[paired, has_qual] = _build_both(paired, has_qual)
+    return cases[paired, has_qual]
+
+
+def _build_both(paired, has_qual):
+    """(bundle, spec, JAX side, port side, JAX log conprb, JAX log noise
+    conprb)."""
     ref, bundle, spec, model = synthetic_arrays_fast(
         n_reads=400, M=60, read_len=36, tx_len=400, paired=paired,
         has_qual=has_qual, mean_extra_hits=1.0, seed=3,
@@ -61,7 +86,9 @@ def _both(paired, has_qual):
     tpre = tconprb.precompute_profile_indices_fused(tkcfg, trefd, tm1, tm2,
                                                     thd)
     torch_side = (tkcfg, trefd, tm1, tm2, thd, tdm, tpre)
-    return bundle, spec, jax_side, torch_side
+    lcp = compute_log_conprb(kcfg, refd, m1, m2, hd, dm, pre=pre)
+    lnp = compute_log_noise_conprb(kcfg, m1, m2, dm, pre=pre)
+    return bundle, spec, jax_side, torch_side, lcp, lnp
 
 
 def _assert_logp(got, want):
@@ -74,32 +101,28 @@ def _assert_logp(got, want):
 
 
 @pytest.mark.parametrize("paired,has_qual", CASES)
-def test_log_conprb_matches(paired, has_qual):
-    bundle, _spec, (k, r, a, b, h, dm, pre), (tk, tr, ta, tb, th, tdm,
-                                              tpre) = _both(paired, has_qual)
-    want = compute_log_conprb(k, r, a, b, h, dm, pre=pre)
+def test_log_conprb_matches(cases, paired, has_qual):
+    bundle, _spec, _jax, (tk, tr, ta, tb, th, tdm, tpre), want, _lnp = \
+        _both(cases, paired, has_qual)
     got = tconprb.compute_log_conprb(tk, tr, ta, tb, th, tdm, tpre)
     _assert_logp(got.numpy(), np.asarray(want)[: bundle.hits.n_hits])
 
 
 @pytest.mark.parametrize("paired,has_qual", CASES)
-def test_log_noise_conprb_matches(paired, has_qual):
-    bundle, _spec, (k, _r, a, b, _h, dm, pre), (tk, _tr, ta, tb, _th, tdm,
-                                                tpre) = _both(paired,
-                                                              has_qual)
-    want = compute_log_noise_conprb(k, a, b, dm, pre=pre)
+def test_log_noise_conprb_matches(cases, paired, has_qual):
+    bundle, _spec, _jax, (tk, _tr, ta, tb, _th, tdm, tpre), _lcp, want = \
+        _both(cases, paired, has_qual)
     got = tconprb.compute_log_noise_conprb(tk, ta, tb, tdm, tpre)
     _assert_logp(got.numpy(), np.asarray(want)[: bundle.hits.n_reads])
 
 
 @pytest.mark.parametrize("paired,has_qual", CASES)
-def test_suffstats_match(paired, has_qual):
+def test_suffstats_match(cases, paired, has_qual):
     bundle, spec, (k, r, a, b, h, dm, pre), (tk, tr, ta, tb, th, tdm,
-                                             tpre) = _both(paired, has_qual)
+                                             tpre), lcp, lnp = _both(
+        cases, paired, has_qual)
     # one E-step on the JAX side gives the posteriors both sides scatter
     n_reads, M = bundle.hits.n_reads, int(r.full_len.shape[0]) - 1
-    lcp = compute_log_conprb(k, r, a, b, h, dm, pre=pre)
-    lnp = compute_log_noise_conprb(k, a, b, dm, pre=pre)
     lt = jnp.full((M + 1,), -np.log(M + 1), jnp.float32)
     out = estep_fracs(lt, h.sid, h.rid, lcp, lnp, n_reads, M)
     want = suffstats(k, r, a, b, h, out.frac_hit, out.frac_noise, dm,
@@ -117,15 +140,14 @@ def test_suffstats_match(paired, has_qual):
 
 
 @pytest.mark.parametrize("paired,has_qual", CASES)
-def test_estep_fracs_match(paired, has_qual):
-    bundle, _spec, (k, r, a, b, h, dm, pre), (tk, tr, ta, tb, th, tdm,
-                                              tpre) = _both(paired, has_qual)
+def test_estep_fracs_match(cases, paired, has_qual):
+    bundle, _spec, (_k, r, _a, _b, h, _dm, _pre), (_tk, _tr, _ta, _tb, th,
+                                                   _tdm, _tpre), lcp, lnp = \
+        _both(cases, paired, has_qual)
     n_reads, M = bundle.hits.n_reads, int(r.full_len.shape[0]) - 1
     H = bundle.hits.n_hits
     rng = np.random.default_rng(4)
     lt = np.log(rng.dirichlet(np.ones(M + 1))).astype(np.float32)
-    lcp = compute_log_conprb(k, r, a, b, h, dm, pre=pre)
-    lnp = compute_log_noise_conprb(k, a, b, dm, pre=pre)
     want = estep_fracs(jnp.asarray(lt), h.sid, h.rid, lcp, lnp, n_reads, M)
     got = testep.estep_fracs(
         torch.tensor(lt), th.sid.long(), th.rid.long(),

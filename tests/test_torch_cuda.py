@@ -11,7 +11,9 @@ in the theta round, PreIdx for paired and quality-less reads, and the
 Gibbs sweep (K5) at read widths from 1 to 8192 slots, one and eight chains,
 on the layout's own table and on one 40 times as large; plus the fused
 model loop against the CPU and under sync debug mode "error", run_em,
-run_gibbs and run_ci on the card against the CPU and the goldens."""
+run_gibbs and run_ci on the card against the CPU and the goldens, and
+windowed PreIdx: K4 over a window's views, K3 into one accumulator across
+windows, and run_em windowed against unwindowed."""
 
 import numpy as np
 import pytest
@@ -72,6 +74,21 @@ def test_scatter_add(dev, size, cols):
     got = table.scatter_add(idx, w, size)
     want = table.scatter_add_plain(idx.cpu(), w.cpu(), size)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_scatter_add_into_accumulator(dev):
+    """The windowed passes add each window's scatter into one f64 table."""
+    rng = np.random.default_rng(5)
+    idx = _idx(rng, 3000, 128, 1000, dev)
+    w = torch.as_tensor(rng.random(3000), dtype=torch.float32, device=dev)
+    acc = torch.zeros(1000, dtype=torch.float64, device=dev)
+    n0 = table.scatter_add.launches
+    for a, b in ((0, 1100), (1100, 1101), (1101, 3000)):
+        assert table.scatter_add(idx[a:b], w[a:b], 1000, acc) is acc
+    assert table.scatter_add.launches == n0 + 3
+    want = table.scatter_add_plain(idx.cpu(), w.cpu(), 1000)
+    torch.testing.assert_close(acc.float().cpu(), want, rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_wrappers_check_inputs(dev):
@@ -264,6 +281,72 @@ def test_run_em_cuda_matches_cpu(dev, paired):
     np.testing.assert_allclose(g.counts, c.counts, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(g.tpm, c.tpm, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(g.frac_hit, c.frac_hit, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_preidx_of_a_window_view(dev, paired):
+    """K4 over a window's hits (1-D views that start mid-array) equals
+    those rows of the whole build, bit for bit."""
+    ref, bundle, _spec, model = synthetic_dataset(
+        n_reads=2000, M=50, read_len=50, tx_len=400, paired=paired,
+        has_qual=True, mean_extra_hits=1.5, seed=3)
+    refd, m1, m2, hd = em.upload(ref, bundle, paired, dev)
+    kcfg = em.kernel_config(model, bundle, int(m1.codes.shape[1]))
+    whole = conprb.precompute_profile_indices_fused(kcfg, refd, m1, m2, hd)
+    off = bundle.hits.read_offsets
+    w = conprb.Window(701, 1403, int(off[701]), int(off[1403]))
+    n0 = conprb.preidx_flat.launches
+    part = conprb.window_preidx(kcfg, refd, m1, m2, hd, w)
+    assert conprb.preidx_flat.launches == n0 + (2 if paired else 1)
+    assert torch.equal(part.flat1, whole.flat1[w.h0:w.h1])
+    assert torch.equal(part.nflat1, whole.nflat1[w.r0:w.r1])
+    if paired:
+        assert torch.equal(part.flat2, whole.flat2[w.h0:w.h1])
+        assert torch.equal(part.nflat2, whole.nflat2[w.r0:w.r1])
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_run_em_windowed_cuda_matches_unwindowed(dev, paired):
+    """On the card, PreIdx cut into >= 3 windows against the unwindowed
+    per-round path: same rounds; theta, counts, frac_hit and the refit
+    profiles within rtol 1e-5."""
+    import copy
+
+    ref, bundle, _spec, model = synthetic_dataset(
+        n_reads=3000, M=80, read_len=36, tx_len=400, paired=paired,
+        has_qual=True, mean_extra_hits=1.5, seed=11)
+    kcfg = em.kernel_config(model, bundle, 36)
+    budget = conprb.preidx_bytes(kcfg, bundle.hits.n_hits,
+                                 bundle.hits.n_reads) // 3
+    w = em.run_em(copy.deepcopy(model), ref, bundle,
+                  em.EMConfig(preidx_budget=budget), device=dev)
+    u = em.run_em(copy.deepcopy(model), ref, bundle,
+                  em.EMConfig(fused_model=False), device=dev)
+    assert w.windows >= 3 and u.windows == 1
+    assert w.rounds == u.rounds
+    for name in ("theta_raw", "counts", "frac_hit"):
+        np.testing.assert_allclose(getattr(w, name), getattr(u, name),
+                                   rtol=1e-5, atol=1e-9, err_msg=name)
+    np.testing.assert_allclose(w.model.pro.p, u.model.pro.p, rtol=1e-5,
+                               atol=1e-12)
+    np.testing.assert_allclose(w.model.npro.p, u.model.npro.p, rtol=1e-5,
+                               atol=1e-12)
+
+
+def test_default_budget_on_cuda(dev):
+    """The default budget is the free device memory less the headroom, in
+    PreIdx bytes; a workload far under it runs in one window."""
+    import copy
+
+    ref, bundle, _spec, model = synthetic_dataset(
+        n_reads=500, M=20, read_len=36, tx_len=300, seed=2)
+    kcfg = em.kernel_config(model, bundle, 36)
+    budget = em.preidx_budget(em.EMConfig(), kcfg, dev,
+                              bundle.hits.n_hits)
+    free, _total = torch.cuda.mem_get_info(dev)
+    assert 0 < budget < free
+    res = em.run_em(copy.deepcopy(model), ref, bundle, device=dev)
+    assert res.windows == 1 and 0 < res.preidx_budget < free
 
 
 def _model_loop_inputs(paired, device):

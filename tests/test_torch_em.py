@@ -12,11 +12,22 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 
 from rsem_tpu.engine.em import EMConfig, _run_em_device
 from rsem_tpu.testing import synthetic_dataset
 from rsem_tpu_torch import convert
 from rsem_tpu_torch.engine import em as tem
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _run_both(monkeypatch, paired, min_round, max_round):

@@ -23,6 +23,16 @@ from rsem_tpu_torch.testing import synthetic_gibbs_hits as _synthetic
 C = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _s32(x):
     return x - (1 << 32) if x >= (1 << 31) else x
 

@@ -14,6 +14,16 @@ from rsem_tpu_torch.ops import gibbs
 from rsem_tpu_torch.testing import relabel_layout, synthetic_gibbs_hits
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chains(N=40, M=12, C=2):
     hits, lcp, lnp = synthetic_gibbs_hits(N, M, seed=0, max_hits=2)
     layout = gibbs.build_layout(hits, lcp, lnp, M)

@@ -49,6 +49,55 @@ def test_port_imports_with_jax_blocked():
             "rsem_tpu_torch.ops.model_loop"} <= set(_port_modules())
 
 
+def test_native_ingest_imports_with_jax_blocked():
+    """The sidecar's bindings and the native path of io/sam.py, run on a
+    golden SAM in a fresh interpreter with jax made unimportable, load no
+    jax and no rsem_tpu module."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from rsem_tpu_torch.io.sam import parse_alignments\n"
+        "from rsem_tpu_torch.native import bamparse\n"
+        "from rsem_tpu_torch.refprep.transcripts import Transcripts\n"
+        "ti = Transcripts.read_ti('tests/goldens/ref.ti')\n"
+        "names = [''] + [t.transcript_id for t in ti.transcripts]\n"
+        "b = parse_alignments('tests/goldens/aln.sam.gz', names, 1, False, "
+        "25, use_native=True)\n"
+        "assert bamparse._lib is not None and b.cnt.N1 > 0\n"
+        "bad = [m for m in sys.modules if m == 'rsem_tpu' or "
+        "m.startswith('rsem_tpu.') or m == 'jax' and sys.modules[m]]\n"
+        "print(b.cnt.N1, bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[0]) > 0
+
+
+def test_native_ingest_raises_without_gxx(monkeypatch, tmp_path):
+    """use_native=True never drops to Python quietly: with no g++ (and no
+    earlier build) the call raises, naming the compiler."""
+    from rsem_tpu_torch import native
+    from rsem_tpu_torch.io.sam import open_alignment_file, parse_alignments
+    from rsem_tpu_torch.native import bamparse
+
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "_build")
+    monkeypatch.setattr(native.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(bamparse, "_lib", None)
+    sam = os.path.join(ROOT, "tests", "goldens", "aln.sam.gz")
+    reader = open_alignment_file(sam)
+    names = [""] + list(reader.target_names)
+    reader.close()
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        parse_alignments(sam, names, 1, False, 25, use_native=True)
+    assert not (tmp_path / "_build").exists() or not any(
+        (tmp_path / "_build").rglob("*.so"))
+    # the explicit Python path still runs
+    assert parse_alignments(sam, names, 1, False, 25,
+                            use_native=False).cnt.N1 > 0
+
+
 def _imports(path):
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):

@@ -43,6 +43,16 @@ CPU = torch.device("cpu")
 # ------------------------------------------------------------------ #
 # K2 / K3: table gather-sum and scatter-add                           #
 # ------------------------------------------------------------------ #
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _table_case(size, X, seed):
     rng = np.random.default_rng(seed)
     flat = rng.integers(0, size + 1, size=(X, 128)).astype(np.int32)

@@ -45,6 +45,16 @@ CONFIGS = {
 FIXED, CONVERGED = (15, 15), (20, 10_000)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_loop_inputs(ref, bundle, model):
     """The JAX device engine's set-up of the fused loop (its
     _run_em_device up to jit_build_model_loop_data)."""

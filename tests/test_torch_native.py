@@ -14,6 +14,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from rsem_tpu import native as jnative
 from rsem_tpu.engine.em import EMConfig, _run_em_hybrid
@@ -28,6 +29,16 @@ CONFIGS = {
     "pe_qual_rspd": dict(paired=True, has_qual=True, est_rspd=True),
 }
 THREADS = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -121,7 +132,7 @@ def test_build_goes_to_build_dir_and_needs_gxx(libs, tmp_path, monkeypatch):
     assert path.exists() and path.parent.parent == tnative.BUILD_ROOT
     assert sorted(p.name for p in tnative.SRC.parent.iterdir()
                   if not p.name.startswith("__pycache__")) == [
-        "__init__.py", "suffstats.cpp"]
+        "__init__.py", "bamparse.cpp", "bamparse.py", "suffstats.cpp"]
     ref, bundle, _spec, model = synthetic_dataset(
         n_reads=50, M=5, read_len=30, tx_len=200, seed=1)
     t_ref = convert.reference_from_arrays(convert.host_state(ref))

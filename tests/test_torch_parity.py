@@ -8,6 +8,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from rsem_tpu_torch.model.generative import GenerativeModel
 
@@ -24,6 +25,16 @@ CASES = {
     "aln_pe2": ("aln_pe2", "golden_pe2", ["--paired-end", "--no-qualities"],
                 0.05, 5e-4, "extra"),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _read_table(path):

@@ -23,6 +23,16 @@ N, M, N0 = 200, 20, 3.0
 
 
 @functools.lru_cache(maxsize=None)
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; in a test run of several
+    worker processes torch's intra-op thread pool only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case():
     rng = np.random.default_rng(2)
     nh = np.minimum(rng.geometric(0.25, size=N) + (rng.random(N) < 0.02)
