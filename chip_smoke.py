@@ -87,8 +87,34 @@ non-zero on failure:
     unmapped reads; testing.synthetic_bam, outside the timed window)
     parsed with use_native=True and use_native=False: identical bundles,
     records/s of each; the native parser must have run.
+11. simulate_reads on the card at full width: 10M single-end 100 bp reads
+    with qualities from the model phase 6 fitted, on the full-width
+    reference (M = 20,000), with phase 6's TPM and theta0 = 0.05, written
+    to a temporary directory; wall time, and host-clock seconds with the
+    device synchronised before each reading: the draws, the records built
+    on the device and copied to the host, the host's file writes; reads/s,
+    bytes written, resimulated reads and peak device memory
+    (the simulator's own must stay under 4 GiB). Checks: counts sum to N,
+    4N lines, every transcript's count within 6 sd + 3 of N theta and a
+    chi-square p > 1e-6 (testing.counts_vs_theta), the read-length
+    histogram within 5 sd + 3 per bin of gld truncated at each
+    transcript. Then 1M pairs from tests/goldens/golden_pe.model on the
+    golden reference: counts against theta as above, the fragment lengths
+    of the read names against gld and the mate lengths against mld
+    truncated at each fragment, 5 sd + 3 per bin.
+12. the round trip through the port's CLI on the card, in a temporary
+    directory: prepare-reference on tests/goldens/tx.fa + map.txt (ref.seq,
+    .ti, .grp, .transcripts.fa byte-identical to the goldens),
+    simulate-reads of 100,000 reads from golden.model and
+    golden.isoforms.results (theta0 0.05, seed 7), the binomial z-test
+    against golden_sim's counts (tests/test_parity_extra.py:315-346),
+    calculate-expression --alignments on the provenance SAM (each read's
+    true alignment, from its name): expected counts equal the
+    simulator's true counts within 1e-2, and its .sim.isoforms.results
+    counts equal the names' counts; wall time.
 
-The next-to-last line is {"kernels": [...]}, the last line
+The line before `kernels` holds the stage numbers (phases 11-12 under
+`simulate`); the next-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -121,6 +147,11 @@ K5_SWEEPS = 3  # sweeps held against the plain version
 # the run at a real sample's size: paired-end 150 bp, ~35M alignments
 LARGE_READS, LARGE_READ_LEN = 14_000_000, 150
 INGEST_READS, INGEST_M = 420_000, 2000  # ~1.04M BAM records
+# phase 11: reads simulated at full width (single end) and on the golden
+# reference (paired end); noise share theta0
+SIM_READS, SIM_PAIRS, SIM_THETA0 = 10_000_000, 1_000_000, 0.05
+SIM_PEAK_LIMIT = 4 * 2**30  # the simulator's own peak device memory
+ROUND_TRIP_READS = 100_000  # phase 12 (the size of golden_sim)
 
 
 def fail(msg: str):
@@ -209,9 +240,11 @@ def make_workload():
     from rsem_tpu_torch.testing import synthetic_arrays_fast
 
     t0 = time.perf_counter()
+    # the quality transition counts fill the model's QualDist, which no
+    # kernel reads and phase 11's quality chain draws from
     ref, bundle, spec, model = synthetic_arrays_fast(
         n_reads=N_READS, M=M_TX, read_len=READ_LEN, tx_len=TX_LEN,
-        has_qual=True, seed=0)
+        has_qual=True, seed=0, collect_qual_stats=True)
     log(f"workload: N={bundle.hits.n_reads} H={bundle.hits.n_hits} "
         f"M={ref.M} T={ref.codes.shape[0]} "
         f"({time.perf_counter() - t0:.1f} s to generate)")
@@ -1401,6 +1434,221 @@ def phase_ingest(d: str, n_reads: int = INGEST_READS):
     return out
 
 
+def line_lengths(path: str):
+    """Length of every line of a text file that ends in a newline."""
+    import numpy as np
+
+    buf = np.fromfile(path, dtype=np.uint8)
+    nl = np.flatnonzero(buf == 10)
+    if buf.size and buf[-1] != 10:
+        fail(f"{path} does not end in a newline")
+    return nl - np.concatenate([[-1], nl[:-1]]) - 1
+
+
+def check_fastq(path: str, n: int):
+    """Read lengths of a FASTQ of n records (4 lines each, quality lines
+    as long as the sequences)."""
+    import numpy as np
+
+    lens = line_lengths(path)
+    if lens.size != 4 * n:
+        fail(f"{path}: {lens.size} lines, not 4 x {n}")
+    if not np.array_equal(lens[1::4], lens[3::4]) or (lens[2::4] != 1).any():
+        fail(f"{path}: malformed FASTQ records")
+    return lens[1::4]
+
+
+def check_counts(what: str, counts, theta, n: int):
+    from rsem_tpu_torch.testing import counts_vs_theta
+
+    if counts.sum() != n:
+        fail(f"{what}: counts sum to {counts.sum()}, not {n}")
+    worst, p = counts_vs_theta(counts, theta, n)
+    if worst > 1.0 or p <= 1e-6:
+        fail(f"{what}: counts against N theta: worst |O - E| / (6 sd + 3) "
+             f"= {worst:.3f}, chi-square p = {p:.3g}")
+    return worst, p
+
+
+def check_hist(what: str, obs, exp) -> float:
+    from rsem_tpu_torch.testing import hist_vs_expected
+
+    worst = hist_vs_expected(obs, exp)
+    if worst > 1.0:
+        fail(f"{what}: a bin is off by more than 5 sd + 3 ({worst:.3f})")
+    return worst
+
+
+def _table_col(path: str, col: str):
+    rows = [l.rstrip("\n").split("\t") for l in open(path)]
+    return {r[0]: float(r[rows[0].index(col)]) for r in rows[1:]}
+
+
+def phase_simulate(ref, model, tpm, dev, d: str):
+    """simulate_reads at full width and paired end on the golden reference
+    (phase 11)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.engine import simulate as sim
+    from rsem_tpu_torch.model.generative import GenerativeModel
+    from rsem_tpu_torch.refprep.reference import Reference
+    from rsem_tpu_torch.testing import truncated_length_hist
+
+    n = SIM_READS
+    theta = sim.sim_theta(model, tpm, SIM_THETA0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prefix = os.path.join(d, "full")
+    t0 = time.perf_counter()
+    res = sim.simulate_reads(model, ref, tpm, SIM_THETA0, n, prefix,
+                             seed=11, device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    path = prefix + ".fq"
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    lens = check_fastq(path, n)
+    os.remove(path)
+    worst, p = check_counts("phase 11 single end", res.counts, theta, n)
+    refL = np.where(np.arange(ref.M + 1) == 0, -1, ref.tot_len)
+    h_len = check_hist("phase 11 read lengths", np.bincount(lens),
+                       truncated_length_hist(model.gld, refL, res.counts))
+    check_s = time.perf_counter() - t0
+    if peak >= SIM_PEAK_LIMIT:
+        fail(f"simulate_reads peaked at {peak} device bytes beyond its "
+             f"inputs, over {SIM_PEAK_LIMIT}")
+    se = {"reads": n, "M": ref.M, "read_len": int(model.gld.maxL),
+          "wall_s": wall, "sample_s": res.sample_seconds,
+          "assemble_s": res.assemble_seconds, "write_s": res.write_seconds,
+          "reads_per_s": n / wall,
+          "bytes_written": nbytes, "n_resimulated": res.n_resimulated,
+          "peak_device_bytes": peak, "counts_worst": worst,
+          "chi2_p": p, "length_hist_worst": h_len, "check_s": check_s}
+    log(f"simulate (single end): {n} reads, M {ref.M}, {wall:.2f} s = "
+        f"{n / wall:,.0f} reads/s; device draws {res.sample_seconds:.2f} s, "
+        f"records built on the device and copied out "
+        f"{res.assemble_seconds:.2f} s, host writes "
+        f"{res.write_seconds:.2f} s; {nbytes} bytes; "
+        f"{res.n_resimulated} resimulated; peak {peak / 2**30:.3f} GiB "
+        f"beyond its inputs; counts worst {worst:.3f} (<= 1), chi-square p "
+        f"{p:.3g}; length histogram worst {h_len:.3f}; checks {check_s:.1f} s")
+
+    gref = Reference.load_seq(os.path.join(GOLD, "ref.seq"))
+    pe = GenerativeModel.read(os.path.join(GOLD, "golden_pe.model"),
+                              refs=gref)
+    tab = _table_col(os.path.join(GOLD, "golden_pe.isoforms.results"), "TPM")
+    tpm_pe = np.array([0.0] + [tab[t] for t in gref.names[1:]])
+    n = SIM_PAIRS
+    prefix = os.path.join(d, "pe")
+    t0 = time.perf_counter()
+    res = sim.simulate_reads(pe, gref, tpm_pe, SIM_THETA0, n, prefix,
+                             seed=12, device=dev)
+    pe_wall = time.perf_counter() - t0
+    mates = [check_fastq(f"{prefix}_{m}.fq", n) for m in (1, 2)]
+    with open(f"{prefix}_1.fq", "rb") as f:
+        names = f.read().split(b"\n")[0:4 * n:4]
+    fields = np.array([x[1:-2].split(b"_") for x in names], dtype=np.int64)
+    for m in (1, 2):
+        os.remove(f"{prefix}_{m}.fq")
+    pw, pp = check_counts("phase 11 paired end", res.counts,
+                          sim.sim_theta(pe, tpm_pe, SIM_THETA0), n)
+    if not np.array_equal(np.bincount(fields[:, 2], minlength=gref.M + 1),
+                          res.counts):
+        fail("phase 11 paired end: read names disagree with the counts")
+    refL = np.where(np.arange(gref.M + 1) == 0, -1, gref.tot_len)
+    h_frag = check_hist("phase 11 fragment lengths", np.bincount(fields[:, 4]),
+                        truncated_length_hist(pe.gld, refL, res.counts))
+    fr, fc = np.unique(np.where(fields[:, 2] == 0, -1, fields[:, 4]),
+                       return_counts=True)
+    h_mate = check_hist("phase 11 mate lengths",
+                        np.bincount(np.concatenate(mates)),
+                        truncated_length_hist(pe.mld, fr, 2 * fc))
+    pe_out = {"pairs": n, "M": gref.M, "wall_s": pe_wall,
+              "sample_s": res.sample_seconds,
+              "assemble_s": res.assemble_seconds,
+              "write_s": res.write_seconds,
+              "n_resimulated": res.n_resimulated, "counts_worst": pw,
+              "chi2_p": pp, "fragment_hist_worst": h_frag,
+              "mate_hist_worst": h_mate}
+    log(f"simulate (paired end, golden_pe.model): {n} pairs in "
+        f"{pe_wall:.2f} s (draws {res.sample_seconds:.2f} s, records "
+        f"{res.assemble_seconds:.2f} s, writes {res.write_seconds:.2f} s); "
+        f"counts worst {pw:.3f}, chi-square p "
+        f"{pp:.3g}; fragment-length histogram worst {h_frag:.3f}, mate "
+        f"lengths {h_mate:.3f}")
+    return {"single_end": se, "paired_end": pe_out}
+
+
+def phase_round_trip(d: str):
+    """prepare-reference -> simulate-reads -> calculate-expression through
+    the port's CLI, in process, on the card (phase 12)."""
+    import numpy as np
+
+    from rsem_tpu_torch.__main__ import main as cli
+    from rsem_tpu_torch.refprep.reference import Reference
+    from rsem_tpu_torch.testing import provenance_sam, two_sample_counts_ok
+
+    n = ROUND_TRIP_READS
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    os.chdir(d)
+    try:
+        if cli(["prepare-reference", "--transcript-to-gene-map",
+                os.path.join(GOLD, "map.txt"), os.path.join(GOLD, "tx.fa"),
+                "ref", "-q"]) != 0:
+            fail("prepare-reference failed")
+        for name in ("ref.seq", "ref.ti", "ref.grp", "ref.transcripts.fa"):
+            with open(name, "rb") as a, open(os.path.join(GOLD, name),
+                                             "rb") as b:
+                if a.read() != b.read():
+                    fail(f"prepare-reference: {name} differs from the golden")
+        t1 = time.perf_counter()
+        if cli(["simulate-reads", "ref", os.path.join(GOLD, "golden.model"),
+                os.path.join(GOLD, "golden.isoforms.results"),
+                str(SIM_THETA0), str(n), "sim", "--seed", "7", "-q"]) != 0:
+            fail("simulate-reads failed")
+        t2 = time.perf_counter()
+        refs = Reference.load_seq("ref.seq")
+        tids = refs.names[1:]
+        truth = _table_col("sim.sim.isoforms.results", "count")
+        mine = np.array([0.0] + [truth[t] for t in tids])
+        mine[0] = n - mine.sum()
+        gold_t = _table_col(os.path.join(GOLD, "golden_sim.isoforms.results"),
+                            "count")
+        gold = np.array([0.0] + [gold_t[t] for t in tids])
+        gold[0] = n - gold.sum()
+        z_ok = two_sample_counts_ok(mine, gold, n)
+        if not z_ok.all():
+            fail(f"simulate-reads against golden_sim: entries "
+                 f"{np.nonzero(~z_ok)[0].tolist()} outside 4.5 sd")
+        prov = provenance_sam(refs, "sim.fq", "simaln.sam")
+        if not np.array_equal(prov, mine):
+            fail("sim.sim.isoforms.results counts differ from the names'")
+        t3 = time.perf_counter()
+        if cli(["calculate-expression", "--alignments", "simaln.sam", "ref",
+                "ours", "-q", "--device", "cuda"]) != 0:
+            fail("calculate-expression on the simulated reads failed")
+        t4 = time.perf_counter()
+        got = _table_col("ours.isoforms.results", "expected_count")
+        err = max(abs(got[t] - prov[k]) for k, t in enumerate(tids, 1))
+        if err > 1e-2:
+            fail(f"round trip: expected counts off the truth by {err}")
+    finally:
+        os.chdir(cwd)
+    out = {"reads": n, "wall_s": t4 - t0, "prepare_s": t1 - t0,
+           "simulate_s": t2 - t1, "sam_s": t3 - t2,
+           "calculate_expression_s": t4 - t3, "max_count_err": err,
+           "noise_reads": int(mine[0])}
+    log(f"round trip: {t4 - t0:.2f} s (prepare-reference {t1 - t0:.2f}, "
+        f"simulate-reads {t2 - t1:.2f}, provenance SAM {t3 - t2:.2f}, "
+        f"calculate-expression {t4 - t3:.2f}); reference byte-identical to "
+        f"the goldens, z-test against golden_sim passed, expected counts "
+        f"within {err:.2e} of the truth")
+    return out
+
+
 def main() -> int:
     _name, mem_rate, op_rate = phase_device()
     import torch
@@ -1431,12 +1679,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.append(phase_k5(ref, bundle, em, dev, mem_rate, op_rate))
     phase_goldens()
-    del ref, bundle, model, em, _fitted
+    sim_tpm = em.tpm  # phase 11 draws from phase 6's fit
+    del bundle, model, em
     torch.cuda.empty_cache()
     large_launches, large = phase_large(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         ingest = phase_ingest(d)
+    with tempfile.TemporaryDirectory() as d:
+        simulate = phase_simulate(ref, _fitted, sim_tpm, dev, d)
+    with tempfile.TemporaryDirectory() as d:
+        simulate["round_trip"] = phase_round_trip(d)
     for r in rows:
         # EM kernels: launches of the main path; K5: of the posterior path
         r["launches"] = launches.get(r["name"], post_launches[r["name"]])
@@ -1448,7 +1701,8 @@ def main() -> int:
                                "rounds": rounds},
                     "fused_vs_per_round": fused, "backends": backends,
                     "windowed": windowed, "posterior_s": post_secs,
-                    "large_run": large, "ingest": ingest}))
+                    "large_run": large, "ingest": ingest,
+                    "simulate": simulate}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

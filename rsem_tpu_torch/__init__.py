@@ -13,8 +13,9 @@ ops       device layout, conprb/PreIdx (whole or in windows), E-step,
 native    the C++ host sidecars, built with g++ on first use: BAM/SAM
           ingest and BGZF compression (bamparse), the EM backends
           hybrid and native (suffstats)
-engine    EM, Gibbs, CI
-pipeline  calculate-expression driver
+engine    EM, Gibbs, CI, the read simulator
+pipeline  calculate-expression, prepare-reference (host only) and
+          simulate-reads entry points; aligner command lines
 convert   carries host objects and model tables across
 
 Entry points run on CUDA unless the caller passes device="cpu"

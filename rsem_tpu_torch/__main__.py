@@ -13,8 +13,20 @@ def _cmd_calculate_expression(argv):
     return main(argv)
 
 
+def _cmd_prepare_reference(argv):
+    from .pipeline.prepare_reference import main
+    return main(argv)
+
+
+def _cmd_simulate_reads(argv):
+    from .pipeline.simulate_reads import main
+    return main(argv)
+
+
 COMMANDS = {
     "calculate-expression": _cmd_calculate_expression,
+    "prepare-reference": _cmd_prepare_reference,
+    "simulate-reads": _cmd_simulate_reads,
 }
 
 

@@ -379,3 +379,94 @@ def synthetic_bam(path: str, n_reads: int, M: int = 2000,
                 w.write_raw(records(sl, n_hits, with_cigar))
                 n_rec += int(n_hits.sum())
     return n_rec
+
+
+# ------------------------------------------------------------------ #
+# checks of simulated reads (tests and the card's smoke run)          #
+# ------------------------------------------------------------------ #
+def two_sample_counts_ok(a: np.ndarray, b: np.ndarray, n: int,
+                         k: float = 4.5) -> np.ndarray:
+    """Per entry: two draws of n reads, counts a and b, agree within
+    k sd of their difference + 3 (tests/test_parity_extra.py:342-346)."""
+    p = (a + b) / (2 * n)
+    sd = np.sqrt(n * p * (1 - p))
+    return np.abs(a - b) <= k * sd * np.sqrt(2) + 3
+
+
+def counts_vs_theta(counts: np.ndarray, theta: np.ndarray, n: int):
+    """(largest |O - E| / (6 sd + 3) over entries, chi-square p) of read
+    counts O against E = n * theta. The + 3 keeps entries with an expected
+    count below 1, where the normal tail does not hold, from false alarms;
+    the chi-square runs over entries with E >= 5 plus one pooled bin of
+    the rest."""
+    import torch
+
+    theta = np.asarray(theta, np.float64) / np.sum(theta)
+    e = n * theta
+    sd = np.sqrt(e * (1 - theta))
+    worst = float(np.max(np.abs(counts - e) / (6 * sd + 3)))
+    big = e >= 5
+    obs = np.append(counts[big], counts[~big].sum())
+    exp = np.append(e[big], e[~big].sum())
+    if exp[-1] < 5:
+        obs, exp = obs[:-1], exp[:-1]
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    p = float(torch.special.gammaincc(
+        torch.tensor((len(obs) - 1) / 2, dtype=torch.float64),
+        torch.tensor(chi2 / 2, dtype=torch.float64)))
+    return worst, p
+
+
+def truncated_length_hist(ld, refL: np.ndarray,
+                          weights: np.ndarray) -> np.ndarray:
+    """Expected histogram (index = length) of weights[i] draws from the
+    LenDist `ld` truncated at refL[i] (-1: the whole support), as the
+    simulator draws fragment and mate lengths."""
+    pdf, cdf = ld.device_arrays(ld.lb, ld.ub)
+    span = ld.ub - ld.lb
+    out = np.zeros(ld.ub + 1)
+    for r, w in zip(refL, weights):
+        dl = span if r < 0 else min(max(min(ld.ub, int(r)) - ld.lb, 0), span)
+        if w and dl > 0 and cdf[dl] > 0:
+            out[ld.lb + 1: ld.lb + dl + 1] += w * pdf[1: dl + 1] / cdf[dl]
+    return out
+
+
+def hist_vs_expected(obs: np.ndarray, exp: np.ndarray) -> float:
+    """Largest |O - E| / (5 sd + 3) over the bins of two histograms
+    (index = length); at most 1 passes."""
+    k = max(len(obs), len(exp))
+    obs = np.pad(np.asarray(obs, np.float64), (0, k - len(obs)))
+    exp = np.pad(np.asarray(exp, np.float64), (0, k - len(exp)))
+    return float(np.max(np.abs(obs - exp) / (5 * np.sqrt(exp) + 3)))
+
+
+def provenance_sam(refs: Reference, fastq: str, sam: str) -> np.ndarray:
+    """Write a SAM of each simulated read's true alignment, taken from its
+    name rid_dir_sid_pos (noise reads unmapped; strand-local pos turned
+    into the forward-strand POS, SamParser.h:136-142), and return the
+    per-transcript counts [M+1] of the names."""
+    comp = str.maketrans("ACGTN", "TGCAN")
+    lines = ["@HD\tVN:1.0"] + [
+        f"@SQ\tSN:{refs.names[i]}\tLN:{int(refs.tot_len[i])}"
+        for i in range(1, refs.M + 1)]
+    counts = np.zeros(refs.M + 1)
+    with open(fastq) as f:
+        rec = f.read().splitlines()
+    for name, s, q in zip(rec[0::4], rec[1::4], rec[3::4]):
+        rid, d, sid, pos = (int(x) for x in name[1:].split("_")[:4])
+        counts[sid] += 1
+        if sid == 0:
+            lines.append(f"N{rid}\t4\t*\t0\t0\t*\t*\t0\t0\t{s}\t{q}")
+            continue
+        L = len(s)
+        if d == 0:
+            flag, s_out, q_out, p = 0, s, q, pos
+        else:
+            flag, s_out, q_out = 16, s.translate(comp)[::-1], q[::-1]
+            p = int(refs.tot_len[sid]) - pos - L
+        lines.append(f"S{rid}\t{flag}\t{refs.names[sid]}\t{p + 1}\t255\t"
+                     f"{L}M\t*\t0\t0\t{s_out}\t{q_out}")
+    with open(sam, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return counts

@@ -13,7 +13,8 @@ on the layout's own table and on one 40 times as large; plus the fused
 model loop against the CPU and under sync debug mode "error", run_em,
 run_gibbs and run_ci on the card against the CPU and the goldens, and
 windowed PreIdx: K4 over a window's views, K3 into one accumulator across
-windows, and run_em windowed against unwindowed."""
+windows, and run_em windowed against unwindowed; and the read simulator on
+the card (counts of a 1M-read draw against theta, same seed same bytes)."""
 
 import numpy as np
 import pytest
@@ -534,3 +535,53 @@ def test_run_ci_cuda_on_reference_countvectors(dev):
         assert abs(res.tpm.ub[k + 1] - g_ub) < 0.12 * width + 0.5, r[0]
         assert res.tpm.cqv[k + 1] == pytest.approx(float(r[i_cqv]),
                                                    abs=0.03, rel=0.12)
+
+
+def _golden_sim_inputs(model_file):
+    import os
+
+    from rsem_tpu_torch.model.generative import GenerativeModel
+    from rsem_tpu_torch.refprep.reference import Reference
+
+    gold = os.path.join(os.path.dirname(__file__), "goldens")
+    refs = Reference.load_seq(f"{gold}/ref.seq")
+    model = GenerativeModel.read(f"{gold}/{model_file}", refs=refs)
+    rows = [l.rstrip("\n").split("\t")
+            for l in open(f"{gold}/golden.isoforms.results")]
+    tpm = np.zeros(refs.M + 1)
+    tpm[1:] = [float(r[rows[0].index("TPM")]) for r in rows[1:]]
+    return refs, model, tpm
+
+
+def test_simulate_counts_follow_theta_on_card(dev, tmp_path):
+    """1M reads drawn on the card from the golden single-end model: the
+    transcript counts against n * theta (6 sd + 3 each, chi-square p >
+    1e-6), four FASTQ lines per read."""
+    from rsem_tpu_torch.engine import simulate as sim
+    from rsem_tpu_torch.testing import counts_vs_theta
+
+    refs, model, tpm = _golden_sim_inputs("golden.model")
+    n = 1_000_000
+    res = sim.simulate_reads(model, refs, tpm, 0.05, n, str(tmp_path / "s"),
+                             seed=13, device=dev)
+    assert res.counts.sum() == n and res.counts.shape == (refs.M + 1,)
+    worst, p = counts_vs_theta(res.counts, sim.sim_theta(model, tpm, 0.05),
+                               n)
+    assert worst <= 1.0 and p > 1e-6, (worst, p)
+    buf = np.fromfile(tmp_path / "s.fq", dtype=np.uint8)
+    assert int((buf == 10).sum()) == 4 * n
+
+
+def test_simulate_same_seed_same_bytes_on_card(dev, tmp_path):
+    from rsem_tpu_torch.engine import simulate as sim
+
+    refs, model, tpm = _golden_sim_inputs("golden_pe.model")
+
+    def run(tag, seed):
+        sim.simulate_reads(model, refs, tpm, 0.05, 50_000,
+                           str(tmp_path / tag), seed=seed, chunk=20_000,
+                           device=dev)
+        return [(tmp_path / f"{tag}_{m}.fq").read_bytes() for m in (1, 2)]
+
+    a, b, c = run("a", 5), run("b", 5), run("c", 6)
+    assert a == b and a != c

@@ -46,7 +46,16 @@ def test_port_imports_with_jax_blocked():
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 30
     assert {"rsem_tpu_torch.native",
-            "rsem_tpu_torch.ops.model_loop"} <= set(_port_modules())
+            "rsem_tpu_torch.ops.model_loop",
+            "rsem_tpu_torch.engine.simulate",
+            "rsem_tpu_torch.pipeline.simulate_reads",
+            "rsem_tpu_torch.pipeline.prepare_reference",
+            "rsem_tpu_torch.pipeline.aligners",
+            "rsem_tpu_torch.refprep.gtf",
+            "rsem_tpu_torch.refprep.gff3",
+            "rsem_tpu_torch.refprep.extract",
+            "rsem_tpu_torch.refprep.synthesis",
+            "rsem_tpu_torch.refprep.prepare"} <= set(_port_modules())
 
 
 def test_native_ingest_imports_with_jax_blocked():
