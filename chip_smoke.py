@@ -112,16 +112,62 @@ non-zero on failure:
     true alignment, from its name): expected counts equal the
     simulator's true counts within 1e-2, and its .sim.isoforms.results
     counts equal the names' counts; wall time.
+13. allele-specific quantification through the port's CLI, in process, on
+    the card: a seeded allele reference of 5,000 genes x 2 transcripts of
+    2,000 bp (90% of the transcripts with two alleles differing at SNPs,
+    one per ~250 bp; ~19,000 alleles; prepare-reference
+    --allele-to-gene-map), 1M reads simulated from golden.model with
+    lognormal allele TPMs (theta0 0.05), each read aligned to every allele
+    of its transcript at its true position; calculate-expression
+    --calc-pme --calc-ci --no-bam-output, launch counts zeroed just before
+    and read just after (K1-K5 must launch). Gates: transcript expected
+    counts within 1e-2 of the truth; allele counts summing to their
+    transcript's and gene's (rel 1e-6, plus half a unit of the tables'
+    last digit per summed number); Pearson r >= 0.9 of allele counts
+    against the truth over two-allele transcripts with >= 50 true reads;
+    transcript PME within max(3 sd, 1.5) of the truth; lb <= ub in every
+    CI column; a single-allele transcript's CI columns equal its allele's.
+    Then each kernel against its plain version on the inputs this run
+    gave it (the driver's run_em and run_gibbs record them,
+    driver_capture): K4 bit-identical, K2 rtol 1e-6, K3 and K1 rtol 1e-5
+    (hold_path_em), K5 identical chains from the run's own initial state
+    over 3 sweeps; run_gibbs on the card and on the CPU over 3 sweeps on
+    the same inputs: identical count vectors and allele and transcript
+    moments within rtol 1e-5; the run's pme_c, pve_c and pve_c_trans
+    within rtol 1e-5 of a float64 recomputation from its count vectors
+    (hold_path_gibbs); the tables' allele PME and SD and transcript SD
+    columns equal those moments to the printed digit.
+14. the BAM options through the port's CLI on a genome reference: a seeded
+    genome of 4 x 1 Mbp with 1,000 genes of two isoforms sharing exons
+    (prepare-reference --gtf), 100,000 pairs from golden_pe.model, each
+    aligned to its isoform and, where the fragment lies wholly in exons the
+    sibling shares at the same genome positions, to the sibling
+    (testing.SharedExonSiblings, from the GTF coordinates);
+    calculate-expression --paired-end --output-genome-bam
+    --sort-bam-by-coordinate, then --sort-bam-by-read-name on a copy of the
+    SAM with its reads shuffled. Gates: each genome record's mismatches
+    against the genome equal its transcript records' against the
+    transcripts; ZW per read equal in both BAMs; genome records = 2 per
+    pair (a pair's alignments collapse to one locus); sorted BAMs in
+    samtools order holding the same records; each BAI finds every record
+    (testing.bai_finds_all); the name-sorted rerun's .cnt and tables
+    identical; gene expected counts within 1e-2 of the truth; K1-K4
+    against their plain versions on both mates' inputs of the first run
+    (hold_path_em; launch counts are of that run alone). Records/s of
+    the transcript-BAM write, tbam2gbam, the coordinate sort with its BAI
+    and the name sort (the driver's --time stages).
 
 The line before `kernels` holds the stage numbers (phases 11-12 under
-`simulate`); the next-to-last line is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}.
+`simulate`, 13 under `allele`, 14 under `bam_options`); the next-to-last
+line is {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gzip
+import importlib
 import json
 import os
 import shutil
@@ -152,6 +198,9 @@ INGEST_READS, INGEST_M = 420_000, 2000  # ~1.04M BAM records
 SIM_READS, SIM_PAIRS, SIM_THETA0 = 10_000_000, 1_000_000, 0.05
 SIM_PEAK_LIMIT = 4 * 2**30  # the simulator's own peak device memory
 ROUND_TRIP_READS = 100_000  # phase 12 (the size of golden_sim)
+ALLELE_GENES, ALLELE_READS = 5000, 1_000_000  # phase 13
+# phase 14: a genome of 4 x 1 Mbp, 1,000 genes of two isoforms
+GENOME_PAIRS, GENOME_GENES, GENOME_CHROM_LEN = 100_000, 1000, 1_000_000
 
 
 def fail(msg: str):
@@ -867,6 +916,57 @@ def phase_posterior(ref, bundle, model0, dev):
     return em, model, launches, secs
 
 
+def k5_replay(layout, assigns, tab, seed: int, label: str,
+              sweeps: int = K5_SWEEPS):
+    """K5 against its plain version over `sweeps` sweeps from one chain
+    state (copied for each), with the per-part seeds of Gibbs seed `seed`
+    and one delta scratch for all sweeps: identical assignments and tables,
+    one launch per part and sweep. Returns (kernel sweeps, plain sweeps),
+    each a function of the sweep index that sweeps its own copy on, and
+    the read assignments moved and table entries changed per plain sweep."""
+    import torch
+
+    from rsem_tpu_torch.ops import gibbs
+
+    seeds = [gibbs.part_seed(seed, pi) for pi in range(len(layout.parts))]
+    a_k = [a.clone() for a in assigns]
+    a_p = [a.clone() for a in assigns]
+    t_k, t_p = tab.clone(), tab.clone()
+    scratch = gibbs.delta_scratch(t_k)
+
+    def kern_sweep(s):
+        for part, a, sp in zip(layout.parts, a_k, seeds):
+            gibbs.sweep_part(a, t_k, part, sp, s, scratch)
+
+    def plain_sweep(s):
+        for part, a, sp in zip(layout.parts, a_p, seeds):
+            gibbs.sweep_part_plain(a, t_p, part, sp, s)
+
+    n0 = gibbs.sweep_part.launches
+    moved = changed = 0
+    for s in range(sweeps):
+        kern_sweep(s)
+        a_0, t_0 = [a.clone() for a in a_p], t_p.clone()
+        plain_sweep(s)
+        moved += sum(int((x != y).sum()) for x, y in zip(a_p, a_0))
+        changed += int((t_p != t_0).sum())
+    if t_k.is_cuda:  # on the CPU the wrapper runs the plain version
+        torch.cuda.synchronize()
+        launched = gibbs.sweep_part.launches - n0
+    else:
+        launched = sweeps * len(layout.parts)
+    if launched != sweeps * len(layout.parts):
+        fail(f"K5 ({label}) launched {launched} times, not "
+             f"{sweeps * len(layout.parts)}")
+    n_diff = sum(int((x != y).sum()) for x, y in zip(a_k, a_p))
+    if n_diff or not torch.equal(t_k, t_p) or bool(scratch.any()):
+        fail(f"K5 ({label}) differs from its plain version after {sweeps} "
+             f"sweeps: {n_diff} assignments, max table diff "
+             f"{float((t_k - t_p).abs().max())}, scratch left non-zero "
+             f"{bool(scratch.any())}")
+    return kern_sweep, plain_sweep, moved / sweeps, changed / sweeps
+
+
 def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
     """K5 against its plain version at full width, K5_SWEEPS sweeps of 8
     chains from one initial state each way: on the posterior path's layout
@@ -898,50 +998,18 @@ def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
         return layout, assigns, tab
 
     def hold(layout, assigns, tab, label):
-        """Identical to the plain version over K5_SWEEPS sweeps, one delta
-        scratch for all of them; returns the kernel's (median, min, max) ms
-        per sweep, the plain sweep, and the assignments and table entries
-        that one sweep changes (mean over the plain sweeps)."""
-        seeds = [gibbs.part_seed(1, pi) for pi in range(len(layout.parts))]
-        a_k = [a.clone() for a in assigns]
-        a_p = [a.clone() for a in assigns]
-        t_k, t_p = tab.clone(), tab.clone()
-        scratch = gibbs.delta_scratch(t_k)
-
-        def kern(a, t, part, sp, s):
-            gibbs.sweep_part(a, t, part, sp, s, scratch)
-
-        def sweep(fn, a_s, t, s):
-            for part, a, sp in zip(layout.parts, a_s, seeds):
-                fn(a, t, part, sp, s)
-
-        n0 = gibbs.sweep_part.launches
-        moved = changed = 0
-        for s in range(K5_SWEEPS):
-            sweep(kern, a_k, t_k, s)
-            a_0, t_0 = [a.clone() for a in a_p], t_p.clone()
-            sweep(gibbs.sweep_part_plain, a_p, t_p, s)
-            moved += sum(int((x != y).sum()) for x, y in zip(a_p, a_0))
-            changed += int((t_p != t_0).sum())
-        torch.cuda.synchronize()
-        if gibbs.sweep_part.launches - n0 != K5_SWEEPS * len(layout.parts):
-            fail(f"K5 ({label}) launched {gibbs.sweep_part.launches - n0} "
-                 f"times, not {K5_SWEEPS * len(layout.parts)}")
-        n_diff = sum(int((x != y).sum()) for x, y in zip(a_k, a_p))
-        if n_diff or not torch.equal(t_k, t_p) or bool(scratch.any()):
-            fail(f"K5 ({label}) differs from its plain version after "
-                 f"{K5_SWEEPS} sweeps: {n_diff} assignments, max table diff "
-                 f"{float((t_k - t_p).abs().max())}, scratch left non-zero "
-                 f"{bool(scratch.any())}")
-        k_ms = time_cuda(lambda: sweep(kern, a_k, t_k, K5_SWEEPS))
+        """k5_replay, then the kernel's (median, min, max) ms per sweep;
+        returns those, the plain sweep, and the assignments and table
+        entries that one sweep changes."""
+        kern_sweep, plain_sweep, moved, changed = k5_replay(
+            layout, assigns, tab, 1, label)
+        k_ms = time_cuda(lambda: kern_sweep(K5_SWEEPS))
         log(f"K5 {label} (T = {tab.shape[1]}): identical to the plain version"
-            f" over {K5_SWEEPS} sweeps x {C} chains ({moved} of "
-            f"{K5_SWEEPS * C * layout.n_reads} read assignments moved); "
+            f" over {K5_SWEEPS} sweeps x {C} chains ({moved * K5_SWEEPS:.0f} "
+            f"of {K5_SWEEPS * C * layout.n_reads} read assignments moved); "
             f"{k_ms[0]:.3f} ms per sweep [{k_ms[1]:.3f}, {k_ms[2]:.3f}], "
             f"{k_ms[0] * 1e3 / layout.n_tiles:.2f} us per tile step")
-        return (k_ms, lambda: sweep(gibbs.sweep_part_plain, a_p, t_p,
-                                    K5_SWEEPS),
-                moved / K5_SWEEPS, changed / K5_SWEEPS)
+        return k_ms, lambda: plain_sweep(K5_SWEEPS), moved, changed
 
     def k5_bound(layout, moved, changed):
         """Bytes of one sweep: each placed slot's sid and cps and each
@@ -1649,6 +1717,562 @@ def phase_round_trip(d: str):
     return out
 
 
+def _rows(path):
+    rows = [l.rstrip("\n").split("\t") for l in open(path)]
+    return rows[0], rows[1:]
+
+
+def _col(hdr, rows, name):
+    import numpy as np
+
+    return np.array([float(r[hdr.index(name)]) for r in rows])
+
+
+def _stage_seconds(path: str) -> dict:
+    """The per-stage lines (# name: s s.) of a --time file."""
+    out = {}
+    for line in open(path):
+        if line.startswith("# "):
+            name, secs = line[2:].rsplit(":", 1)
+            out[name] = out.get(name, 0.0) + float(secs.split()[0])
+    return out
+
+
+def _sum_ok(parts, total, k, what: str) -> float:
+    """Summed table entries against their total: rel 1e-6, plus half a unit
+    of the tables' last printed digit (0.005) for each of the k + 1 printed
+    numbers."""
+    import numpy as np
+
+    d = np.abs(parts - total)
+    bad = d > 1e-6 * np.abs(total) + 0.005 * (k + 1)
+    if bad.any():
+        fail(f"{what}: {int(bad.sum())} entries off (max {d.max():.4g})")
+    return float(d.max())
+
+
+@contextlib.contextmanager
+def driver_capture():
+    """For the length of one CLI run, the driver's run_em and run_gibbs
+    record their inputs (the model copied before run_em refits it, inside
+    the run's timed em stage) and their results; yields the record."""
+    ce = importlib.import_module(
+        "rsem_tpu_torch.pipeline.calculate_expression")
+    got = {}
+    run_em, run_gibbs = ce.run_em, ce.run_gibbs
+
+    def em_rec(model, *args, **kw):
+        got["em_in"] = (copy.deepcopy(model), args)
+        got["em"] = run_em(model, *args, **kw)
+        return got["em"]
+
+    def gibbs_rec(*args, **kw):
+        got["gibbs_in"] = (args, kw)
+        got["gibbs"] = run_gibbs(*args, **kw)
+        return got["gibbs"]
+
+    ce.run_em, ce.run_gibbs = em_rec, gibbs_rec
+    try:
+        yield got
+    finally:
+        ce.run_em, ce.run_gibbs = run_em, run_gibbs
+
+
+def hold_path_em(label: str, got, dev) -> dict:
+    """K4, K2, K3 and K1 against their plain versions on the inputs one
+    CLI run gave them (driver_capture), at the tolerances of phase 3: K4
+    builds each mate's PreIdx of the run's bundle (bit-identical); K2
+    gathers the initial model's profile and noise tables over them (rtol
+    1e-6); K3 scatters the run's final hit and noise posteriors by them
+    (rtol 1e-5); K1 runs one round from the run's initial and one from its
+    final theta over its final conprbs (theta and counts rtol 1e-5, stop
+    count within 2). Returns the max abs error of each kernel."""
+    import torch
+
+    from rsem_tpu_torch.convert import model_arrays_to_torch
+    from rsem_tpu_torch.engine import em as em_mod
+    from rsem_tpu_torch.ops import conprb, table, theta
+
+    model, (ref, bundle, _cfg) = got["em_in"]
+    res = got["em"]
+    refd, m1, m2, hd = em_mod.upload(ref, bundle, model.spec.paired, dev)
+    kcfg = em_mod.kernel_config(model, bundle, int(m1.codes.shape[1]))
+    dm = model_arrays_to_torch(model.device_arrays(), dev)
+    pro, npro = kcfg.pro_keys(), kcfg.npro_keys()
+    tab = table.padded_table(dm["log_pro"].reshape(-1), pro)
+    ntab = table.padded_table(dm["log_npro"].reshape(-1), npro)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(dev)  # noqa
+    w, wn = f32(res.frac_hit), f32(res.frac_noise)
+    err = {"K4": 0.0, "K2": 0.0, "K3": 0.0, "K1": 0.0}
+    for i, mate in enumerate((m1, m2) if model.spec.paired else (m1,)):
+        what = f"{label}, mate {i + 1}"
+        flat = conprb.preidx_flat(kcfg, refd, mate, hd, mate2=i == 1)
+        if not torch.equal(flat, conprb.preidx_flat_plain(kcfg, refd, mate,
+                                                          hd, i == 1)):
+            fail(f"{what}: K4 preidx_flat differs from its plain version")
+        nflat = conprb.noise_flat(kcfg, mate)
+        err["K2"] = max(
+            err["K2"],
+            close(table.gather_sum(tab, flat),
+                  table.gather_sum_plain(tab, flat), 1e-6, 1e-6,
+                  f"{what}: K2 gather_sum (profile)"),
+            close(table.gather_sum(ntab, nflat),
+                  table.gather_sum_plain(ntab, nflat), 1e-6, 1e-6,
+                  f"{what}: K2 gather_sum (noise)"))
+        err["K3"] = max(
+            err["K3"],
+            close(table.scatter_add(flat, w, pro),
+                  table.scatter_add_plain(flat, w, pro), 1e-5, 1e-6,
+                  f"{what}: K3 scatter_add (profile)"),
+            close(table.scatter_add(nflat, wn, npro),
+                  table.scatter_add_plain(nflat, wn, npro), 1e-5, 1e-6,
+                  f"{what}: K3 scatter_add (noise)"))
+        del flat, nflat
+    data = theta.scale_conprbs(
+        hd, torch.as_tensor(res.log_conprb).to(dev),
+        torch.as_tensor(res.log_ncp).to(dev), ref.M, float(bundle.cnt.N0))
+    for which, th in (("initial", em_mod._theta_init(bundle.cnt, ref.M)),
+                      ("final", res.theta_raw)):
+        th = f32(th)
+        state = theta.round_state(data, 1, dev)
+        state.ring[0] = th
+        theta.theta_round(state, data, 1)
+        t_p, c_p, n_p = theta.theta_round_plain(th, data)
+        what = f"{label}: K1 theta_round from the {which} theta"
+        err["K1"] = max(err["K1"],
+                        close(state.ring[1], t_p, 1e-5, 1e-9, what),
+                        close(state.counts, c_p, 1e-5, 1e-6, what))
+        if abs(int(state.tot[0]) - int(n_p)) > 2:
+            fail(f"{what}: stop count {int(state.tot[0])}, plain {int(n_p)}")
+    return err
+
+
+def hold_path_gibbs(label: str, got, dev, sweeps: int = K5_SWEEPS) -> dict:
+    """K5 and the allele posteriors on the inputs the CLI run gave
+    run_gibbs (driver_capture). K5 against its plain version from the
+    run's own initial chain state and seeds, over its first `sweeps`
+    sweeps (identical chains, as phase 7). run_gibbs on the card and on
+    the CPU, the same inputs at `sweeps` sweeps: identical count vectors,
+    every moment within rtol 1e-5 (atol 1e-6). The run's own moments
+    against a float64 recomputation from its count vectors: pme_c, pve_c
+    and pve_c_trans (the variance of each transcript's summed allele
+    counts) within rtol 1e-5 (atol 1e-6). Returns the max abs errors."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.engine import gibbs as eg
+    from rsem_tpu_torch.ops import gibbs
+
+    args, kw = got["gibbs_in"]
+    hits, lcp, lnp, M, N0, _eel, _mw, _gi, cfg = args
+    init, pseudo, _totc = eg.setup_counts(cfg, M, N0, hits.n_reads,
+                                          kw.get("omit"), kw.get("prior"))
+    layout = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
+    base = torch.as_tensor(init + pseudo, dtype=torch.float32)
+    base[0] += N0 + layout.n_noise_fixed
+    assigns, tab = gibbs.init_chains(layout, base, cfg.n_chains, cfg.seed,
+                                     dev)
+    k5_replay(layout, assigns, tab, cfg.seed, f"{label}, the run's chains",
+              sweeps)
+    del layout, assigns, tab
+
+    def near(got_, want, what):
+        return close(torch.as_tensor(got_), torch.as_tensor(want), 1e-5,
+                     1e-6, f"{label}: {what}")
+
+    short = dataclasses.replace(cfg, burnin=sweeps - 2,
+                                nsamples=2 * cfg.n_chains, gap=1,
+                                keep_countvectors=True)
+    on = {d: eg.run_gibbs(*args[:8], short, **{**kw, "device": d})
+          for d in (dev, "cpu")}
+    if not torch.equal(on[dev].countvectors.cpu(), on["cpu"].countvectors):
+        fail(f"{label}: run_gibbs on the card and on the CPU drew different "
+             f"count vectors over {sweeps} sweeps")
+    err = {"cpu": max(near(getattr(on[dev], f), getattr(on["cpu"], f), f)
+                      for f in ("pme_c", "pve_c", "pme_tpm", "pme_fpkm",
+                                "pve_c_genes", "pve_c_trans"))}
+    res, ta = got["gibbs"], kw["ta"]
+    cv = res.countvectors.double().cpu().numpy()
+    tsum = np.add.reduceat(cv[:, 1:], ta.starts[:-1] - 1, axis=1)
+    err["f64"] = max(near(res.pme_c, cv.mean(0), "pme_c"),
+                     near(res.pve_c, cv.var(0, ddof=1), "pve_c"),
+                     near(res.pve_c_trans, tsum.var(0, ddof=1),
+                          "pve_c_trans"))
+    return err
+
+
+def phase_allele(d: str, device: str = "cuda", n_genes: int = ALLELE_GENES,
+                 n_reads: int = ALLELE_READS):
+    """Allele-specific quantification through the port's CLI, in process,
+    at full width (phase 13). Returns (launches, summary)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.__main__ import main as cli
+    from rsem_tpu_torch.engine import simulate as sim
+    from rsem_tpu_torch.model.generative import GenerativeModel
+    from rsem_tpu_torch.refprep.reference import Reference
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
+    from rsem_tpu_torch.testing import (
+        allele_siblings,
+        lognormal_tpm,
+        provenance_sam,
+        synthetic_allele_reference,
+    )
+
+    wrappers = kernel_wrappers()
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        t0 = time.perf_counter()
+        synthetic_allele_reference(".", n_genes, seed=13)
+        if cli(["prepare-reference", "--allele-to-gene-map", "amap.txt",
+                "alleles.fa", "aref", "-q"]) != 0:
+            fail("phase 13: prepare-reference failed")
+        t1 = time.perf_counter()
+        ref = Reference.load_seq("aref.seq")
+        ta, gt = GroupInfo.load("aref.ta"), GroupInfo.load("aref.gt")
+        model = GenerativeModel.read(os.path.join(GOLD, "golden.model"),
+                                     refs=ref)
+        sim.simulate_reads(model, ref, lognormal_tpm(ref.M, seed=13),
+                           SIM_THETA0, n_reads, "sim", seed=13, device=device)
+        t2 = time.perf_counter()
+        truth = provenance_sam(ref, "sim.fq", "aln.sam",
+                               also=allele_siblings(ta))
+        os.remove("sim.fq")
+        n_rec = sum(1 for line in open("aln.sam") if line[0] != "@")
+        t3 = time.perf_counter()
+        with driver_capture() as got:
+            for fn in wrappers.values():
+                fn.launches = 0
+            rc = cli(["calculate-expression", "--alignments", "aln.sam",
+                      "aref", "out", "-q", "--device", device, "--calc-pme",
+                      "--calc-ci", "--no-bam-output", "--seed", "13",
+                      "--time"])
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+        t4 = time.perf_counter()
+        if rc != 0:
+            fail("phase 13: calculate-expression failed")
+        stages = _stage_seconds("out.time")
+        ah, arows = _rows("out.alleles.results")
+        ih, irows = _rows("out.isoforms.results")
+        gh, grows = _rows("out.genes.results")
+        if len(arows) != ref.M or len(irows) != ta.m or len(grows) != gt.m:
+            fail("phase 13: table sizes differ from the reference's")
+        tids = ta.gids_of(np.arange(1, ref.M + 1))
+        gids = gt.gids_of(tids)
+        true_t = np.bincount(tids, weights=truth[1:], minlength=ta.m)
+        a_cnt = _col(ah, arows, "expected_count")
+        t_cnt = _col(ih, irows, "expected_count")
+        g_cnt = _col(gh, grows, "expected_count")
+        err = float(np.abs(t_cnt - true_t).max())
+        if err > 1e-2:
+            fail(f"phase 13: transcript expected counts off the truth by "
+                 f"{err}")
+        k_t = np.bincount(tids, minlength=ta.m)
+        k_g = np.bincount(gids, minlength=gt.m)
+        sum_t = _sum_ok(np.bincount(tids, weights=a_cnt, minlength=ta.m),
+                        t_cnt, k_t, "phase 13: alleles -> transcripts")
+        sum_g = _sum_ok(np.bincount(gids, weights=a_cnt, minlength=gt.m),
+                        g_cnt, k_g, "phase 13: alleles -> genes")
+        two = k_t == 2
+        sel = two & (true_t >= 50)
+        pick = np.isin(tids, np.flatnonzero(sel))
+        r = float(np.corrcoef(a_cnt[pick], truth[1:][pick])[0, 1])
+        if not r >= 0.9:
+            fail(f"phase 13: allele counts against the truth: Pearson r {r}")
+        pme = _col(ih, irows, "posterior_mean_count")
+        sd = _col(ih, irows, "posterior_standard_deviation_of_count")
+        pme_w = float((np.abs(pme - true_t) / np.maximum(3 * sd, 1.5)).max())
+        if pme_w > 1.0:
+            fail(f"phase 13: transcript PME off the truth: worst |pme - "
+                 f"truth| / max(3 sd, 1.5) = {pme_w}")
+        ci_cols = [c for c in ih if "_ci_" in c or "quartile" in c]
+        for hdr, rows, what in ((ah, arows, "alleles"), (ih, irows,
+                                                         "isoforms"),
+                                (gh, grows, "genes")):
+            for unit in ("TPM", "FPKM"):
+                lb = _col(hdr, rows, f"{unit}_ci_lower_bound")
+                ub = _col(hdr, rows, f"{unit}_ci_upper_bound")
+                if (lb > ub).any() or not np.isfinite(lb).all():
+                    fail(f"phase 13: {what} {unit} CI with lb > ub")
+        first = ta.starts[:-1] - 1
+        for t in np.flatnonzero(k_t == 1):
+            for c in ci_cols:
+                if irows[t][ih.index(c)] != arows[first[t]][ah.index(c)]:
+                    fail(f"phase 13: transcript {irows[t][0]} {c} differs "
+                         f"from its single allele's")
+        # the kernels and the allele posteriors on this run's own inputs
+        t5 = time.perf_counter()
+        dev = torch.device(device)
+        holds = {"em": hold_path_em("phase 13", got, dev),
+                 "gibbs": hold_path_gibbs("phase 13", got, dev)}
+        gres = got["gibbs"]
+        col = "posterior_standard_deviation_of_count"
+        for hdr, rows, want, what in (
+                (ah, arows, gres.pme_c[1:], "allele PME"),
+                (ah, arows, np.sqrt(gres.pve_c[1:]), "allele SD"),
+                (ih, irows, np.sqrt(gres.pve_c_trans), "transcript SD")):
+            name = "posterior_mean_count" if what.endswith("PME") else col
+            _sum_ok(_col(hdr, rows, name), want, 0, f"phase 13: {what} "
+                    f"column against the run's moments")
+        t6 = time.perf_counter()
+    finally:
+        os.chdir(cwd)
+    out = {"genes": n_genes, "transcripts": ta.m, "alleles": ref.M,
+           "single_allele_transcripts": int((k_t == 1).sum()),
+           "reads": n_reads, "sam_records": n_rec,
+           "noise_reads": int(truth[0]), "prepare_s": t1 - t0,
+           "simulate_s": t2 - t1, "sam_s": t3 - t2,
+           "calculate_expression_s": t4 - t3, "stages_s": stages,
+           "max_count_err": err, "allele_sum_err": sum_t,
+           "gene_sum_err": sum_g, "pearson_r": r,
+           "pearson_transcripts": int(sel.sum()), "pme_worst": pme_w,
+           "path_kernels_max_abs_err": holds, "path_holds_s": t6 - t5}
+    log(f"allele: {ref.M} alleles of {ta.m} transcripts "
+        f"({out['single_allele_transcripts']} with one allele), {n_reads} "
+        f"reads, {n_rec} SAM records; prepare {t1 - t0:.2f} s, simulate "
+        f"{t2 - t1:.2f} s, SAM {t3 - t2:.2f} s, "
+        f"calculate-expression {t4 - t3:.2f} s (stages "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"); launches {launches}; counts within {err:.2e} of the truth, "
+        f"Pearson r {r:.4f} over {int(sel.sum())} transcripts, PME worst "
+        f"{pme_w:.3f}; K1-K5 on this run's inputs equal their plain versions"
+        f" and run_gibbs on the card the CPU's ({holds}, {t6 - t5:.2f} s)")
+    return launches, out
+
+
+def _fasta(path: str) -> dict:
+    seqs, name, buf = {}, None, []
+    for line in open(path):
+        if line.startswith(">"):
+            if name is not None:
+                seqs[name] = "".join(buf)
+            name, buf = line[1:].split()[0], []
+        else:
+            buf.append(line.strip())
+    if name is not None:
+        seqs[name] = "".join(buf)
+    return seqs
+
+
+def _mismatches(rec, target: str) -> int:
+    """Mismatches of a record's bases against its target through the cigar
+    (M compares; N and D skip the target; I and S skip the read)."""
+    seq = rec.seq_string()
+    t, q, mm = rec.pos, 0, 0
+    for ln, op in rec.cigar_ops():
+        if op in "M=X":
+            a = seq[q:q + ln]
+            b = target[t:t + ln]
+            mm += sum(x != y for x, y in zip(a, b)) + ln - len(b)
+            t, q = t + ln, q + ln
+        elif op in "ND":
+            t += ln
+        elif op in "IS":
+            q += ln
+    return mm
+
+
+def _shuffle_reads(src: str, dst: str, seed: int) -> None:
+    """Copy a SAM with its reads (each read's records kept together, in
+    order) in a seeded random order."""
+    import numpy as np
+
+    head, reads, cur, name = [], [], [], None
+    for line in open(src):
+        if line[0] == "@":
+            head.append(line)
+            continue
+        q = line.split("\t", 1)[0]
+        if q != name and cur:
+            reads.append(cur)
+            cur = []
+        name = q
+        cur.append(line)
+    if cur:
+        reads.append(cur)
+    order = np.random.default_rng(seed).permutation(len(reads))
+    with open(dst, "w") as f:
+        f.write("".join(head))
+        for i in order:
+            f.write("".join(reads[i]))
+
+
+def phase_genome_bam(d: str, device: str = "cuda", n_pairs: int = GENOME_PAIRS,
+                     n_genes: int = GENOME_GENES,
+                     chrom_len: int = GENOME_CHROM_LEN):
+    """--output-genome-bam, --sort-bam-by-coordinate and
+    --sort-bam-by-read-name through the port's CLI, in process, on a genome
+    reference (phase 14). Returns (launches, summary)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.__main__ import main as cli
+    from rsem_tpu_torch.engine import simulate as sim
+    from rsem_tpu_torch.io.bamio import BamRecReader
+    from rsem_tpu_torch.model.generative import GenerativeModel
+    from rsem_tpu_torch.refprep.reference import Reference
+    from rsem_tpu_torch.refprep.transcripts import Transcripts
+    from rsem_tpu_torch.testing import (
+        SharedExonSiblings,
+        bai_finds_all,
+        bam_records,
+        lognormal_tpm,
+        provenance_sam,
+        record_span,
+        synthetic_genome,
+    )
+
+    wrappers = kernel_wrappers()
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        t0 = time.perf_counter()
+        synthetic_genome(".", seed=14, n_genes=n_genes, chrom_len=chrom_len)
+        if cli(["prepare-reference", "--gtf", "anno.gtf", "genome.fa",
+                "gref", "-q"]) != 0:
+            fail("phase 14: prepare-reference failed")
+        ref = Reference.load_seq("gref.seq")
+        ts = Transcripts.read_ti("gref.ti")
+        model = GenerativeModel.read(os.path.join(GOLD, "golden_pe.model"),
+                                     refs=ref)
+        sim.simulate_reads(model, ref, lognormal_tpm(ref.M, seed=14),
+                           SIM_THETA0, n_pairs, "pe", seed=14, device=device)
+        sib = SharedExonSiblings(ts)
+        truth = provenance_sam(ref, "pe_1.fq", "aln.sam", fastq2="pe_2.fq",
+                               also=sib)
+        _shuffle_reads("aln.sam", "shuf.sam", seed=14)
+        n_tx = 2 * (n_pairs + sib.n_siblings)  # transcript BAM records
+        n_gen = 2 * n_pairs  # one genome locus per pair after collapsing
+        t1 = time.perf_counter()
+        with driver_capture() as got:
+            for fn in wrappers.values():
+                fn.launches = 0
+            if cli(["calculate-expression", "--alignments", "aln.sam",
+                    "gref", "out", "-q", "--device", device, "--paired-end",
+                    "--output-genome-bam", "--sort-bam-by-coordinate",
+                    "--time"]) != 0:
+                fail("phase 14: calculate-expression failed")
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+        t2 = time.perf_counter()
+        holds = hold_path_em("phase 14", got, torch.device(device))
+        del got
+        t2b = time.perf_counter()
+        if cli(["calculate-expression", "--alignments", "shuf.sam", "gref",
+                "ns", "-q", "--device", device, "--paired-end",
+                "--sort-bam-by-read-name", "--no-bam-output",
+                "--time"]) != 0:
+            fail("phase 14: calculate-expression --sort-bam-by-read-name "
+                 "failed")
+        t3 = time.perf_counter()
+        st, st_ns = _stage_seconds("out.time"), _stage_seconds("ns.time")
+
+        # the name-sorted rerun: identical .cnt and tables
+        for a, b in (("out.stat/out.cnt", "ns.stat/ns.cnt"),
+                     ("out.isoforms.results", "ns.isoforms.results"),
+                     ("out.genes.results", "ns.genes.results")):
+            if open(a).read() != open(b).read():
+                fail(f"phase 14: {b} differs from {a} (name-sorted rerun)")
+        gh, grows = _rows("out.genes.results")
+        true_g = {}
+        for sid, t in enumerate(ts.transcripts, 1):
+            true_g[t.gene_id] = true_g.get(t.gene_id, 0.0) + truth[sid]
+        g_err = max(abs(float(r[gh.index("expected_count")]) - true_g[r[0]])
+                    for r in grows)
+        if g_err > 1e-2:
+            fail(f"phase 14: gene expected counts off the truth by {g_err}")
+
+        # genome records against transcript records
+        tseq = _fasta("gref.transcripts.fa")
+        gseq = _fasta("genome.fa")
+        tx = list(BamRecReader("out.transcript.bam"))
+        gb = list(BamRecReader("out.genome.bam"))
+        if len(tx) != n_tx:
+            fail(f"phase 14: transcript BAM has {len(tx)} records, the "
+                 f"helper wrote {n_tx}")
+        if len(gb) != n_gen:
+            fail(f"phase 14: genome BAM has {len(gb)} records, {n_gen} "
+                 f"expected after collapsing")
+        tnames = BamRecReader("out.transcript.bam").header.target_names
+        gnames = BamRecReader("out.genome.bam").header.target_names
+        mm_t, zw_t, zw_g = {}, {}, {}
+        for rec in tx:
+            if not rec.is_mapped:
+                continue
+            key = (rec.canonical_name, rec.is_read1)
+            mm_t.setdefault(key, set()).add(
+                _mismatches(rec, tseq[tnames[rec.tid]]))
+            if rec.is_read1:
+                zw_t[key[0]] = zw_t.get(key[0], 0.0) + rec.get_tag("ZW")
+        n_cmp = 0
+        for rec in gb:
+            if not rec.is_mapped:
+                continue
+            key = (rec.canonical_name, rec.is_read1)
+            mm = _mismatches(rec, gseq[gnames[rec.tid]])
+            if mm_t.get(key) != {mm}:
+                fail(f"phase 14: {key}: {mm} mismatches against the genome, "
+                     f"{mm_t.get(key)} against the transcripts")
+            n_cmp += 1
+            if rec.is_read1:
+                zw_g[key[0]] = zw_g.get(key[0], 0.0) + rec.get_tag("ZW")
+        if zw_t.keys() != zw_g.keys() or any(
+                abs(zw_g[k] - v) > 1e-5 * max(v, 1e-3) + 1e-6
+                for k, v in zw_t.items()):
+            fail("phase 14: ZW per read differs between the transcript and "
+                 "the genome BAM")
+
+        # sorted copies: samtools order, same records, a BAI that finds all
+        n_bai = 0
+        for src in ("out.transcript", "out.genome"):
+            recs, _v, _h = bam_records(f"{src}.bam")
+            srt, _v, _h = bam_records(f"{src}.sorted.bam")
+            if sorted(recs) != sorted(srt):
+                fail(f"phase 14: {src}.sorted.bam holds other records")
+            keys = []
+            for raw in srt:
+                tid, pos, _e = record_span(raw)
+                keys.append((tid if tid >= 0 else 2**31, pos))
+            if keys != sorted(keys):
+                fail(f"phase 14: {src}.sorted.bam is not in coordinate order")
+            n_bai += bai_finds_all(f"{src}.sorted.bam",
+                                   f"{src}.sorted.bam.bai")
+    finally:
+        os.chdir(cwd)
+    rate = lambda n, s: n / s if s > 0 else float("nan")  # noqa: E731
+    out = {"pairs": n_pairs, "genes": n_genes, "transcripts": ref.M,
+           "noise_pairs": int(truth[0]), "sibling_alignments": sib.n_siblings,
+           "transcript_records": n_tx, "genome_records": n_gen,
+           "stages_s": st, "name_sort_stages_s": st_ns,
+           "transcript_bam_records_per_s": rate(n_tx, st["bam-output"]),
+           "tbam2gbam_records_per_s": rate(n_tx, st["tbam2gbam"]),
+           "coordinate_sort_records_per_s": rate(
+               n_tx + n_gen, st["sort-bam-by-coordinate"]),
+           "name_sort_records_per_s": rate(n_tx, st_ns["sort-by-read-name"]),
+           "setup_s": t1 - t0, "run_s": t2 - t1,
+           "path_kernels_max_abs_err": holds, "path_holds_s": t2b - t2,
+           "name_sorted_run_s": t3 - t2b,
+           "checks_s": time.perf_counter() - t3, "gene_count_err": g_err,
+           "genome_records_checked": n_cmp, "bai_lookups": n_bai}
+    log(f"genome BAM: {n_pairs} pairs on {ref.M} transcripts of {n_genes} "
+        f"genes ({sib.n_siblings} sibling alignments); {n_tx} transcript "
+        f"and {n_gen} genome records; records/s: transcript BAM "
+        f"{out['transcript_bam_records_per_s']:,.0f}, tbam2gbam "
+        f"{out['tbam2gbam_records_per_s']:,.0f}, coordinate sort + BAI "
+        f"{out['coordinate_sort_records_per_s']:,.0f}, name sort "
+        f"{out['name_sort_records_per_s']:,.0f}; launches {launches}; "
+        f"stages " + ", ".join(f"{k} {v:.2f}" for k, v in st.items())
+        + f"; K1-K4 on the first run's inputs equal their plain versions "
+        f"({holds}); name-sorted rerun identical; gene counts within "
+        f"{g_err:.2e}; "
+        f"{n_cmp} genome records match their transcript records, {n_bai} "
+        f"BAI lookups")
+    return launches, out
+
+
 def main() -> int:
     _name, mem_rate, op_rate = phase_device()
     import torch
@@ -1690,19 +2314,32 @@ def main() -> int:
         simulate = phase_simulate(ref, _fitted, sim_tpm, dev, d)
     with tempfile.TemporaryDirectory() as d:
         simulate["round_trip"] = phase_round_trip(d)
+    with tempfile.TemporaryDirectory() as d:
+        allele_launches, allele = phase_allele(d)
+    for k, n in allele_launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the allele path")
+    with tempfile.TemporaryDirectory() as d:
+        bam_launches, bam_options = phase_genome_bam(d)
+    for k, n in bam_launches.items():
+        if n <= 0 and k not in OFF_EM_PATH:
+            fail(f"kernel {k} was not launched on the genome-BAM run")
     for r in rows:
         # EM kernels: launches of the main path; K5: of the posterior path
         r["launches"] = launches.get(r["name"], post_launches[r["name"]])
         r["posterior_launches"] = post_launches[r["name"]]
         r["windowed_launches"] = win_launches[r["name"]]
         r["large_run_launches"] = large_launches[r["name"]]
+        r["allele_launches"] = allele_launches[r["name"]]
+        r["bam_options_launches"] = bam_launches[r["name"]]
         r["kernel_ms"] = r["ms"]
     log(json.dumps({"run_em": {"cold_s": cold, "warm_s": warm,
                                "rounds": rounds},
                     "fused_vs_per_round": fused, "backends": backends,
                     "windowed": windowed, "posterior_s": post_secs,
                     "large_run": large, "ingest": ingest,
-                    "simulate": simulate}))
+                    "simulate": simulate, "allele": allele,
+                    "bam_options": bam_options}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,17 +12,20 @@ the sorted nCV*nSpC TPM samples covering ceil(confidence * n) points, plus
 the coefficient of quartile variation from Tukey's hinges; FPKM samples are
 1e3 / l_bar * TPM; gene intervals use summed sample vectors, and
 single-isoform genes copy their isoform's interval (calcCI.cpp:350-357).
+With an allele-specific reference (`ta`) the same holds one level down:
+transcript intervals from the summed allele samples, and a transcript of
+one allele copies its allele's interval.
 
 The [n, M] TPM sample matrix stays on the device (4.0 GB at the defaults,
 1000 x 50 samples of M = 20,000); the sort runs in chunks of transcript
-columns. The allele-specific branch and the mesh path are not ported
-(allele references raise in the driver; ROADMAP A12).
+columns, and a chunk of genes (or transcripts) sums only its members'
+contiguous columns. The mesh path is not ported (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -54,6 +57,8 @@ class CIResult:
     fpkm: CIBounds
     gene_tpm: CIBounds  # [m]
     gene_fpkm: CIBounds
+    iso_tpm: Optional[CIBounds] = None  # [ta.m], allele mode only
+    iso_fpkm: Optional[CIBounds] = None
 
 
 def sample_tpm_chunk(gen: torch.Generator, cvecs: torch.Tensor,
@@ -115,6 +120,47 @@ def _bounds_chunked(get_chunk: Callable[[int, int], torch.Tensor], T: int,
     return CIBounds(cat(lbs), cat(ubs), cat(cqvs))
 
 
+def group_starts(groups, M: int) -> np.ndarray:
+    """The starts of a GroupInfo over sids 1..M, checked: the chunked
+    segment sums need every group a non-empty contiguous run of columns."""
+    starts = np.asarray(groups.starts, dtype=np.int64)
+    if starts[0] != 1 or starts[-1] != M + 1 or (np.diff(starts) < 1).any():
+        raise ValueError(f"groups do not tile sids 1..{M} in contiguous, "
+                         "non-empty runs")
+    return starts
+
+
+def group_bounds(tpm: torch.Tensor, inv_lbar: torch.Tensor, groups,
+                 member: CIBounds, member_fpkm: CIBounds, cover: int):
+    """TPM and FPKM intervals of the groups' summed sample columns (genes
+    over isoforms, transcripts over alleles); a group of one member copies
+    its member's interval exactly (calcCI.cpp:350-357)."""
+    n, M = tpm.shape
+    starts = group_starts(groups, M)
+    ids = torch.as_tensor(groups.gids_of(np.arange(1, M + 1)),
+                          dtype=torch.int64, device=tpm.device)
+
+    def chunk(scale):
+        def get(lo, hi):
+            c0, c1 = int(starts[lo]) - 1, int(starts[hi]) - 1
+            cols = tpm[:, c0:c1]
+            if scale is not None:
+                cols = cols * scale
+            out = torch.zeros((n, hi - lo), dtype=torch.float32,
+                              device=tpm.device)
+            return out.index_add_(1, ids[c0:c1] - lo, cols)
+        return get
+
+    g_tpm = _bounds_chunked(chunk(None), groups.m, n, cover)
+    g_fpkm = _bounds_chunked(chunk(inv_lbar), groups.m, n, cover)
+    single = np.diff(starts) == 1
+    first = starts[:-1][single] - 1  # 0-based member index
+    for b_group, b_member in ((g_tpm, member), (g_fpkm, member_fpkm)):
+        for f in ("lb", "ub", "cqv"):
+            getattr(b_group, f)[single] = getattr(b_member, f)[first]
+    return g_tpm, g_fpkm
+
+
 def run_ci(
     countvectors,  # [nCV, M+1] (Gibbs retained samples; tensor or array)
     eel: np.ndarray,
@@ -122,8 +168,11 @@ def run_ci(
     gi,
     cfg: CIConfig,
     device: DeviceLike = None,
+    ta=None,
 ) -> CIResult:
-    """Runs on CUDA unless device="cpu" is given."""
+    """gi: gene GroupInfo; ta: transcript -> allele GroupInfo of an
+    allele-specific reference (adds iso_tpm / iso_fpkm, the transcript
+    intervals). Runs on CUDA unless device="cpu" is given."""
     dev = resolve_device(device)
     cvs = torch.as_tensor(countvectors).to(device=dev, dtype=torch.float32)
     nCV, M1 = cvs.shape
@@ -162,29 +211,10 @@ def run_ci(
     iso_fpkm = _bounds_chunked(lambda lo, hi: tpm[:, lo:hi] * inv_lbar, M,
                                n, cover)
 
-    # genes are contiguous in sid order: a chunk of genes sums only its
-    # member-isoform columns
-    gstarts = np.asarray(gi.starts, dtype=np.int64)
-    gids = torch.as_tensor(gi.gids_of(np.arange(1, M + 1)),
-                           dtype=torch.int64, device=dev)
-
-    def gene_chunk(scale):
-        def get(lo, hi):
-            c0, c1 = int(gstarts[lo]) - 1, int(gstarts[hi]) - 1
-            cols = tpm[:, c0:c1]
-            if scale is not None:
-                cols = cols * scale
-            out = torch.zeros((n, hi - lo), dtype=torch.float32, device=dev)
-            return out.index_add_(1, gids[c0:c1] - lo, cols)
-        return get
-
-    gene_tpm = _bounds_chunked(gene_chunk(None), gi.m, n, cover)
-    gene_fpkm = _bounds_chunked(gene_chunk(inv_lbar), gi.m, n, cover)
-    single = np.diff(gstarts) == 1
-    first_iso = gstarts[:-1] - 1  # 0-based isoform index
-    for b_gene, b_iso in ((gene_tpm, iso_tpm), (gene_fpkm, iso_fpkm)):
-        for f in ("lb", "ub", "cqv"):
-            getattr(b_gene, f)[single] = getattr(b_iso, f)[first_iso[single]]
+    gene_tpm, gene_fpkm = group_bounds(tpm, inv_lbar, gi, iso_tpm, iso_fpkm,
+                                       cover)
+    trans = (None, None) if ta is None else group_bounds(
+        tpm, inv_lbar, ta, iso_tpm, iso_fpkm, cover)
 
     def with_zero(b: CIBounds) -> CIBounds:
         z = np.zeros(1)
@@ -192,4 +222,5 @@ def run_ci(
                         np.concatenate([z, b.cqv]))
 
     return CIResult(tpm=with_zero(iso_tpm), fpkm=with_zero(iso_fpkm),
-                    gene_tpm=gene_tpm, gene_fpkm=gene_fpkm)
+                    gene_tpm=gene_tpm, gene_fpkm=gene_fpkm,
+                    iso_tpm=trans[0], iso_fpkm=trans[1])

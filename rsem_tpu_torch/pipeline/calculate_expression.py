@@ -1,17 +1,18 @@
 """The quantification driver (rsem-calculate-expression equivalent).
 
-Counterpart of rsem_tpu/pipeline/calculate_expression.py (:166-430 and
-:455-540 there): transcript alignments (SAM/BAM) -> model estimation -> EM
-on the device -> optionally the collapsed Gibbs sampler (--calc-pme) and
-credibility intervals (--calc-ci) on the device -> results tables ->
-transcript BAM. Interop artifacts (.cnt/.model/.theta/.mparams; .ofg and
-.countvectors with --keep-intermediate-files) are written under
-sample_name.stat/ and sample_name.temp/ as the reference does.
+Counterpart of rsem_tpu/pipeline/calculate_expression.py: [reads ->
+external aligner] -> transcript alignments (SAM/BAM, optionally name-sorted
+first) -> model estimation -> EM on the device -> optionally the collapsed
+Gibbs sampler (--calc-pme) and credibility intervals (--calc-ci) on the
+device -> results tables (with .alleles.results and transcript-level
+isoform tables for an allele-specific reference) -> transcript BAM, its
+genome-coordinate conversion and coordinate-sorted, indexed copies.
+Interop artifacts (.cnt/.model/.theta/.mparams; .ofg and .countvectors
+with --keep-intermediate-files) are written under sample_name.stat/ and
+sample_name.temp/ as the reference does.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: pRSEM, and (posterior BAM options, aligner runs, allele references)
---output-genome-bam, the BAM sort flags, running an aligner and
-allele-specific references.
+Not ported yet: pRSEM (--run-pRSEM raises NotImplementedError naming its
+ROADMAP item), and the multi-device mesh of the posterior stages.
 """
 
 from __future__ import annotations
@@ -32,26 +33,34 @@ from ..engine.em import EMConfig, run_em, write_theta_file
 from ..engine.gibbs import GibbsConfig, run_gibbs
 from ..io import parse_alignments
 from ..io.bam_writer import write_transcript_bam
+from ..io.bamsort import sort_bam
 from ..io.results import (
+    ALLELE_TITLE_PME,
     GENE_TITLE_CI,
     GENE_TITLE_PME,
     ISO_TITLE_CI,
     ISO_TITLE_PME,
     gene_level_values,
+    transcript_level_values,
+    within_gene_pct,
+    write_allele_results,
     write_gene_results,
     write_isoform_results,
+    write_transcript_results_allele,
 )
 from ..io.sam import finalize_cnt
+from ..io.tbam2gbam import tbam2gbam
 from ..model import GenerativeModel, ModelSpec
 from ..refprep.reference import Reference
 from ..refprep.transcripts import GroupInfo, Transcripts
 from ..utils.device import DeviceLike, resolve_device
+from .aligners import AlignerConfig, run_alignment
 
 
 @dataclass
 class ExpressionConfig:
-    """The reference CLI surface (rsem-calculate-expression:129-205) that
-    this slice supports, plus the flags it refuses."""
+    """The reference CLI surface (rsem-calculate-expression:129-205) but
+    pRSEM's, whose switch alone is here (it raises)."""
 
     paired_end: bool = False
     no_qualities: bool = False
@@ -75,14 +84,14 @@ class ExpressionConfig:
     ci_credibility_level: float = 0.95
     ci_number_of_samples_per_count_vector: int = 50
     single_cell_prior: bool = False
-    # not ported yet (raise)
+    # not ported yet (raises)
     run_prsem: bool = False
-    output_genome_bam: bool = False
-    sort_bam_by_coordinate: bool = False
-    sort_bam_by_read_name: bool = False
     # BAM output (rsem-calculate-expression:94-99,505-527,645-674)
     no_bam_output: bool = False
     sampling_for_bam: bool = False
+    output_genome_bam: bool = False
+    sort_bam_by_coordinate: bool = False
+    sort_bam_by_read_name: bool = False  # sorts the input before parsing
     # misc
     append_names: bool = False
     tag: str = "XM"
@@ -92,6 +101,7 @@ class ExpressionConfig:
     record_time: bool = False  # --time -> sample_name.time
     temporary_folder: Optional[str] = None
     profile_dir: Optional[str] = None  # torch.profiler trace output
+    aligning_seconds: float = 0.0  # filled by main() when it ran an aligner
 
     @property
     def read_type(self) -> int:
@@ -110,15 +120,6 @@ class ExpressionResult:
     cnt: Optional[object] = None
 
 
-_BAM_ITEM = "posterior BAM options, aligner runs, allele references"
-_NOT_PORTED = (
-    ("run_prsem", "--run-pRSEM", "pRSEM on the ported Gibbs sampler"),
-    ("output_genome_bam", "--output-genome-bam", _BAM_ITEM),
-    ("sort_bam_by_coordinate", "--sort-bam-by-coordinate", _BAM_ITEM),
-    ("sort_bam_by_read_name", "--sort-bam-by-read-name", _BAM_ITEM),
-)
-
-
 def _stage_seeds(seed: Optional[int]):
     if seed is None:
         return [None, None, None]
@@ -134,19 +135,6 @@ def _pct(num: np.ndarray, denom: np.ndarray) -> np.ndarray:
     return out
 
 
-def _refuse_unported(cfg: ExpressionConfig, reference_name: str) -> None:
-    for attr, flag, item in _NOT_PORTED:
-        if getattr(cfg, attr):
-            raise NotImplementedError(
-                f"{flag} is not ported to rsem_tpu_torch yet (ROADMAP: "
-                f"{item})")
-    if os.path.exists(f"{reference_name}.gt") and os.path.exists(
-            f"{reference_name}.ta"):
-        raise NotImplementedError(
-            "allele-specific references are not ported to rsem_tpu_torch "
-            f"yet (ROADMAP: {_BAM_ITEM})")
-
-
 def calculate_expression(
     alignments: str,
     reference_name: str,
@@ -154,11 +142,15 @@ def calculate_expression(
     cfg: Optional[ExpressionConfig] = None,
     device: DeviceLike = None,
 ) -> ExpressionResult:
-    """alignments: SAM/BAM of transcript alignments. Runs the EM (and Gibbs
-    and CI when asked for) on CUDA unless device="cpu" is given."""
+    """alignments: SAM/BAM of transcript alignments (running an aligner is
+    `main`'s). Runs the EM (and Gibbs and CI when asked for) on CUDA unless
+    device="cpu" is given."""
     cfg = cfg or ExpressionConfig()
     dev = resolve_device(device)
-    _refuse_unported(cfg, reference_name)
+    if cfg.run_prsem:
+        raise NotImplementedError(
+            "--run-pRSEM is not ported to rsem_tpu_torch yet (ROADMAP: "
+            "pRSEM on the ported Gibbs sampler)")
     t_start = time.time()
     from ..utils.timing import StageTimer, maybe_profile
 
@@ -175,6 +167,10 @@ def calculate_expression(
     ref = Reference.load_seq(f"{reference_name}.seq")
     ts = Transcripts.read_ti(f"{reference_name}.ti")
     gi = GroupInfo.load(f"{reference_name}.grp")
+    allele = os.path.exists(f"{reference_name}.gt") and os.path.exists(
+        f"{reference_name}.ta")
+    ta = GroupInfo.load(f"{reference_name}.ta") if allele else None
+    gt = GroupInfo.load(f"{reference_name}.gt") if allele else None
     names = [""] + [
         (t.seqname if ts.is_allele_specific else t.transcript_id)
         for t in ts.transcripts
@@ -195,6 +191,13 @@ def calculate_expression(
         has_polya=ref.has_polya,
     )
     spec.write_mparams(f"{imd}.mparams")
+
+    # ---- optional input name-sort (rsem-calculate-expression:567-575) ----
+    if cfg.sort_bam_by_read_name:
+        with timer.stage("sort-by-read-name"):
+            sorted_inp = f"{imd}.sorted.bam"
+            sort_bam(alignments, sorted_inp, by="name", keep_pairs=True)
+        alignments = sorted_inp
 
     # ---- parse alignments (rsem-parse-alignments) ----
     with timer.stage("parse-alignments"):
@@ -233,9 +236,12 @@ def calculate_expression(
 
     tlens = ts.lengths()
     gl = gene_level_values(gi, tlens, em.eel, em.counts, em.tpm, em.fpkm)
-    iso_extra, gene_extra = [], []
+    tl = (transcript_level_values(ta, tlens, em.eel, em.counts, em.tpm,
+                                  em.fpkm) if allele else None)
+    iso_extra, gene_extra, allele_extra = [], [], []
     seeds = _stage_seeds(cfg.seed)
     pseudo_count = 0.1 if cfg.single_cell_prior else 1.0
+    sid2g = sid2gid[1:]
 
     # ---- Gibbs (--calc-pme / --calc-ci) ----
     gres = cires = None
@@ -253,6 +259,7 @@ def calculate_expression(
             gres = run_gibbs(
                 bundle.hits, em.log_conprb, em.log_ncp, ref.M, bundle.cnt.N0,
                 em.eel, model.mw, gi, gcfg, omit=bundle.omit, device=dev,
+                ta=ta,
             )
         if cfg.keep_intermediate_files:
             from ..io.ofg import write_countvectors
@@ -261,7 +268,6 @@ def calculate_expression(
             # thread and calcCI globs them)
             write_countvectors(f"{imd}.countvectors",
                                gres.countvectors.cpu().numpy())
-        sid2g = sid2gid[1:]
         gene_pme_c = np.bincount(sid2g, weights=gres.pme_c[1:],
                                  minlength=gi.m)
         gene_pme_tpm = np.bincount(sid2g, weights=gres.pme_tpm[1:],
@@ -271,10 +277,30 @@ def calculate_expression(
         gene_extra.append((GENE_TITLE_PME, np.stack(
             [gene_pme_c, np.sqrt(gres.pve_c_genes), gene_pme_tpm,
              gene_pme_fpkm])))
-        isopct_pme = _pct(gres.pme_tpm[1:], gene_pme_tpm[sid2g])
-        iso_extra.append((ISO_TITLE_PME, np.stack(
-            [gres.pme_c, np.sqrt(gres.pve_c), gres.pme_tpm, gres.pme_fpkm,
-             np.concatenate([[0.0], isopct_pme])])))
+        sid_pme = [gres.pme_c, np.sqrt(gres.pve_c), gres.pme_tpm,
+                   gres.pme_fpkm]
+        if not allele:
+            isopct_pme = _pct(gres.pme_tpm[1:], gene_pme_tpm[sid2g])
+            iso_extra.append((ISO_TITLE_PME, np.stack(
+                sid_pme + [np.concatenate([[0.0], isopct_pme])])))
+        else:
+            sid2tid = ta.gids_of(np.arange(1, ref.M + 1))
+            trans_pme_c = np.bincount(sid2tid, weights=gres.pme_c[1:],
+                                      minlength=ta.m)
+            trans_pme_tpm = np.bincount(sid2tid, weights=gres.pme_tpm[1:],
+                                        minlength=ta.m)
+            trans_pme_fpkm = np.bincount(sid2tid, weights=gres.pme_fpkm[1:],
+                                         minlength=ta.m)
+            tid2gid = gt.gids_of(np.arange(ta.m))
+            allele_iso_pme = _pct(gres.pme_tpm[1:], trans_pme_tpm[sid2tid])
+            allele_gene_pme = _pct(gres.pme_tpm[1:], gene_pme_tpm[sid2g])
+            allele_extra.append((ALLELE_TITLE_PME, np.stack(
+                sid_pme + [np.concatenate([[0.0], allele_iso_pme]),
+                           np.concatenate([[0.0], allele_gene_pme])])))
+            iso_extra.append((ISO_TITLE_PME, np.stack(
+                [trans_pme_c, np.sqrt(gres.pve_c_trans), trans_pme_tpm,
+                 trans_pme_fpkm,
+                 _pct(trans_pme_tpm, gene_pme_tpm[tid2gid])])))
 
     # ---- credibility intervals (--calc-ci) ----
     if cfg.calc_ci:
@@ -286,38 +312,67 @@ def calculate_expression(
         )
         with timer.stage("ci"):
             cires = run_ci(gres.countvectors, em.eel, model.mw, gi, cicfg,
-                           device=dev)
-        iso_extra.append((ISO_TITLE_CI, np.stack(
-            [cires.tpm.lb, cires.tpm.ub, cires.tpm.cqv, cires.fpkm.lb,
-             cires.fpkm.ub, cires.fpkm.cqv])))
-        gene_extra.append((GENE_TITLE_CI, np.stack(
-            [cires.gene_tpm.lb, cires.gene_tpm.ub, cires.gene_tpm.cqv,
-             cires.gene_fpkm.lb, cires.gene_fpkm.ub, cires.gene_fpkm.cqv])))
+                           device=dev, ta=ta)
+
+        def ci_cols(tpm_b, fpkm_b):
+            return (ISO_TITLE_CI, np.stack(
+                [tpm_b.lb, tpm_b.ub, tpm_b.cqv, fpkm_b.lb, fpkm_b.ub,
+                 fpkm_b.cqv]))
+
+        if allele:
+            allele_extra.append(ci_cols(cires.tpm, cires.fpkm))
+            iso_extra.append(ci_cols(cires.iso_tpm, cires.iso_fpkm))
+        else:
+            iso_extra.append(ci_cols(cires.tpm, cires.fpkm))
+        gene_extra.append(ci_cols(cires.gene_tpm, cires.gene_fpkm))
 
     # ---- final tables ----
-    write_isoform_results(
-        f"{sample_name}.isoforms.results", ts, tlens, em.eel, em.counts,
-        em.tpm, em.fpkm, gl.isopct, cfg.append_names, iso_extra,
-    )
+    if allele:
+        write_allele_results(
+            f"{sample_name}.alleles.results", ts, tlens, em.eel, em.counts,
+            em.tpm, em.fpkm, tl.isopct, gl.isopct, cfg.append_names,
+            allele_extra,
+        )
+        write_transcript_results_allele(
+            f"{sample_name}.isoforms.results", ts, ta, gt, tl,
+            within_gene_pct(gt, tl.tpm, gl.tpm), cfg.append_names, iso_extra,
+        )
+    else:
+        write_isoform_results(
+            f"{sample_name}.isoforms.results", ts, tlens, em.eel, em.counts,
+            em.tpm, em.fpkm, gl.isopct, cfg.append_names, iso_extra,
+        )
     write_gene_results(
         f"{sample_name}.genes.results", ts, gi, gl, cfg.append_names,
         gene_extra,
     )
 
-    # ---- posterior-weighted BAM output ----
+    # ---- posterior-weighted BAM output (rsem-calculate-expression:645-674);
+    # the stages split what the JAX driver's .time calls bam-output
     if not cfg.no_bam_output:
-        seed0 = seeds[0]
+        bam_path = f"{sample_name}.transcript.bam"
         with timer.stage("bam-output"):
             write_transcript_bam(
-                alignments, f"{sample_name}.transcript.bam", bundle.hits,
-                em.frac_hit, em.frac_noise, paired=cfg.paired_end,
-                sampling=cfg.sampling_for_bam, seed=seed0, command=None,
+                alignments, bam_path, bundle.hits, em.frac_hit,
+                em.frac_noise, paired=cfg.paired_end,
+                sampling=cfg.sampling_for_bam, seed=seeds[0], command=None,
             )
+        bams = [(bam_path, f"{sample_name}.transcript.sorted.bam")]
+        if cfg.output_genome_bam:
+            genome_bam = f"{sample_name}.genome.bam"
+            with timer.stage("tbam2gbam"):
+                tbam2gbam(reference_name, bam_path, genome_bam)
+            bams.append((genome_bam, f"{sample_name}.genome.sorted.bam"))
+        if cfg.sort_bam_by_coordinate:
+            with timer.stage("sort-bam-by-coordinate"):
+                for src, dst in bams:
+                    sort_bam(src, dst, by="coordinate", build_index=True)
 
     if not cfg.keep_intermediate_files and cfg.temporary_folder is None:
         shutil.rmtree(temp_dir, ignore_errors=True)
     if cfg.record_time:
-        timer.write_time_file(f"{sample_name}.time")
+        timer.write_time_file(f"{sample_name}.time",
+                              aligning=cfg.aligning_seconds)
     if not cfg.quiet:
         print(
             f"calculate_expression finished in {time.time() - t_start:.1f}s "
@@ -330,13 +385,15 @@ def calculate_expression(
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rsem-tpu-torch-calculate-expression",
-        description="Estimate expression from transcript alignments "
-        "(SAM/BAM) with the PyTorch/CUDA port.",
+        description="Estimate expression from RNA-Seq reads (running an "
+        "external aligner) or from transcript alignments (SAM/BAM) with the "
+        "PyTorch/CUDA port.",
     )
     p.add_argument(
         "inputs", nargs="+",
-        help="with --alignments: input reference_name sample_name "
-        "(or reference_name sample_name after --alignments <file>)",
+        help="upstream_read_file(s) [downstream_read_file(s)] "
+        "reference_name sample_name; with --alignments: input "
+        "reference_name sample_name (read-file lists are comma-separated)",
     )
     p.add_argument("--sam", action="store_true",
                    help="deprecated alias: input is SAM (implies "
@@ -347,11 +404,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alignments", nargs="?", const=True, default=None,
                    metavar="SAM/BAM",
                    help="input is SAM/BAM aligned to the transcript "
-                   "reference (the only input this port takes so far)")
+                   "reference (skip the aligner step)")
     p.add_argument("--device", default=None,
                    help="torch device: cuda (default) or cpu")
+    # aligner selection + knobs (rsem-calculate-expression:33-67,391-565)
+    p.add_argument("--bowtie", dest="use_bowtie", action="store_true")
+    p.add_argument("--bowtie2", action="store_true")
+    p.add_argument("--star", action="store_true")
+    p.add_argument("--hisat2-hca", action="store_true")
+    p.add_argument("--bowtie-path", default="")
+    p.add_argument("--bowtie2-path", default="")
+    p.add_argument("--star-path", default="")
+    p.add_argument("--hisat2-path", default="")
+    p.add_argument("--bowtie-n", type=int, default=2)
+    p.add_argument("--bowtie-e", type=int, default=99999999)
+    p.add_argument("--bowtie-m", type=int, default=200)
+    p.add_argument("--bowtie-chunkmbs", type=int, default=0)
+    p.add_argument("--bowtie2-mismatch-rate", type=float, default=0.1)
+    p.add_argument("--bowtie2-k", type=int, default=200)
+    p.add_argument("--bowtie2-sensitivity-level", default="sensitive",
+                   choices=["very_fast", "fast", "sensitive",
+                            "very_sensitive"])
+    p.add_argument("--star-gzipped-read-file", action="store_true")
+    p.add_argument("--star-bzipped-read-file", action="store_true")
+    p.add_argument("--phred33-quals", action="store_true", default=True)
+    p.add_argument("--phred64-quals", action="store_true", default=False)
+    p.add_argument("--solexa-quals", action="store_true", default=False)
     p.add_argument("-p", "--num-threads", type=int, default=1,
-                   help="accepted for CLI compatibility; unused")
+                   help="the aligner's threads")
     p.add_argument("--paired-end", action="store_true")
     p.add_argument("--no-qualities", action="store_true")
     p.add_argument("--strandedness", choices=["none", "forward", "reverse"],
@@ -398,28 +478,77 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _resolve_inputs(args):
-    """(alignment_file, reference_name, sample_name) following the
-    reference's positional convention (rsem-calculate-expression:337-348)."""
+    """Split the positional inputs into (alignment_file_or_None, read_lists,
+    reference_name, sample_name) following the reference's 3/4-positional
+    convention (rsem-calculate-expression:337-348)."""
     pos = list(args.inputs)
     if args.alignments is None and (args.sam or args.bam):
-        args.alignments = True
-    if args.alignments is None:
-        raise NotImplementedError(
-            "running an aligner is not ported to rsem_tpu_torch yet; pass "
-            f"--alignments (ROADMAP: {_BAM_ITEM})")
-    if isinstance(args.alignments, str):
-        if len(pos) != 2:
+        args.alignments = True  # deprecated aliases imply --alignments
+    if args.alignments is not None:
+        if isinstance(args.alignments, str):
+            if len(pos) != 2:
+                raise SystemExit(
+                    "with --alignments <file>: reference_name sample_name")
+            return args.alignments, None, pos[0], pos[1]
+        if len(pos) != 3:
             raise SystemExit(
-                "with --alignments <file>: reference_name sample_name")
-        return args.alignments, pos[0], pos[1]
+                "with --alignments: input reference_name sample_name")
+        return pos[0], None, pos[1], pos[2]
+    if args.paired_end:
+        if len(pos) != 4:
+            raise SystemExit(
+                "paired-end: upstream_read_file(s) downstream_read_file(s) "
+                "reference_name sample_name")
+        return None, (pos[0], pos[1]), pos[2], pos[3]
     if len(pos) != 3:
-        raise SystemExit("with --alignments: input reference_name sample_name")
-    return pos[0], pos[1], pos[2]
+        raise SystemExit(
+            "single-end: upstream_read_file(s) reference_name sample_name")
+    return None, (pos[0], None), pos[1], pos[2]
+
+
+def aligner_config(args, probF: float) -> AlignerConfig:
+    """The aligner run the flags ask for (Bowtie unless --bowtie2, --star
+    or --hisat2-hca)."""
+    aligner = "bowtie"
+    if args.bowtie2:
+        aligner = "bowtie2"
+    elif args.star:
+        aligner = "star"
+    elif args.hisat2_hca:
+        aligner = "hisat2-hca"
+    return AlignerConfig(
+        aligner=aligner,
+        n_threads=args.num_threads,
+        no_qualities=args.no_qualities,
+        phred33=not (args.phred64_quals or args.solexa_quals),
+        phred64=args.phred64_quals,
+        solexa=args.solexa_quals,
+        probF=probF,
+        quiet=args.quiet,
+        bowtie_path=args.bowtie_path,
+        bowtie_n=args.bowtie_n,
+        bowtie_e=args.bowtie_e,
+        bowtie_m=args.bowtie_m,
+        bowtie_chunkmbs=args.bowtie_chunkmbs,
+        seed_length=args.seed_length,
+        bowtie2_path=args.bowtie2_path,
+        bowtie2_mismatch_rate=args.bowtie2_mismatch_rate,
+        bowtie2_k=args.bowtie2_k,
+        bowtie2_sensitivity_level=args.bowtie2_sensitivity_level,
+        fragment_length_min=args.fragment_length_min,
+        fragment_length_max=args.fragment_length_max,
+        star_path=args.star_path,
+        star_gzipped_read_file=args.star_gzipped_read_file,
+        star_bzipped_read_file=args.star_bzipped_read_file,
+        hisat2_path=args.hisat2_path,
+    )
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    input_file, reference_name, sample_name = _resolve_inputs(args)
+    input_file, read_lists, reference_name, sample_name = _resolve_inputs(
+        args)
+    device = resolve_device(args.device)  # before a long aligner run
     cfg = ExpressionConfig(
         paired_end=args.paired_end,
         no_qualities=args.no_qualities,
@@ -457,8 +586,20 @@ def main(argv=None) -> int:
         temporary_folder=args.temporary_folder,
         profile_dir=args.profile_dir,
     )
+    if input_file is None:
+        # run the external aligner (rsem-calculate-expression:391-565)
+        temp_dir = args.temporary_folder or f"{sample_name}.temp"
+        os.makedirs(temp_dir, exist_ok=True)
+        imd = os.path.join(temp_dir, os.path.basename(sample_name))
+        t_align = time.time()
+        input_file = run_alignment(
+            aligner_config(args, cfg.probF), reference_name, sample_name,
+            imd, read_lists[0], read_lists[1],
+            log=(lambda *a: None) if args.quiet else print,
+        )
+        cfg.aligning_seconds = time.time() - t_align
     calculate_expression(input_file, reference_name, sample_name, cfg,
-                         device=args.device)
+                         device=device)
     return 0
 
 

@@ -11,7 +11,8 @@ in the theta round, PreIdx for paired and quality-less reads, and the
 Gibbs sweep (K5) at read widths from 1 to 8192 slots, one and eight chains,
 on the layout's own table and on one 40 times as large; plus the fused
 model loop against the CPU and under sync debug mode "error", run_em,
-run_gibbs and run_ci on the card against the CPU and the goldens, and
+run_gibbs and run_ci on the card against the CPU and the goldens (with an
+allele grouping too), and
 windowed PreIdx: K4 over a window's views, K3 into one accumulator across
 windows, and run_em windowed against unwindowed; and the read simulator on
 the card (counts of a 1M-read draw against theta, same seed same bytes)."""
@@ -502,6 +503,69 @@ def test_run_gibbs_cuda_matches_cpu(dev):
     assert torch.equal(g.countvectors.cpu(), c.countvectors)
     np.testing.assert_allclose(g.pme_c, c.pme_c, rtol=1e-12)
     np.testing.assert_allclose(g.pme_tpm, c.pme_tpm, rtol=1e-5)
+
+
+def _allele_groups(M):
+    """(gene starts, transcript -> allele starts) over sids 1..M: alleles in
+    pairs, every fifth transcript with one; genes of two transcripts."""
+    sizes = np.resize([2, 2, 2, 2, 1], M)
+    ta = np.concatenate([[1], 1 + np.cumsum(sizes)])
+    ta = np.append(ta[ta < M + 1], M + 1)
+    return np.append(ta[:-1][::2], M + 1), ta
+
+
+def test_run_gibbs_allele_cuda_matches_cpu(dev):
+    """run_gibbs with an allele grouping: K5 replays the CPU chains exactly
+    (identical count vectors), pve_c_trans within rtol 1e-5 of the CPU's."""
+    from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
+
+    M = 240
+    gene_s, ta_s = _allele_groups(M)
+    hits, lcp, lnp = synthetic_gibbs_hits(4000, M, seed=9, max_hits=12)
+    eel, mw = np.full(M + 1, 150.0), np.ones(M + 1)
+    cfg = GibbsConfig(burnin=20, nsamples=80, n_chains=8, seed=4)
+    args = (hits, lcp, lnp, M, 25, eel, mw, GroupInfo(gene_s), cfg)
+    g = run_gibbs(*args, device=dev, ta=GroupInfo(ta_s))
+    c = run_gibbs(*args, device="cpu", ta=GroupInfo(ta_s))
+    assert torch.equal(g.countvectors.cpu(), c.countvectors)
+    assert g.pve_c_trans.shape == (len(ta_s) - 1,)
+    np.testing.assert_allclose(g.pve_c_trans, c.pve_c_trans, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(g.pve_c_genes, c.pve_c_genes, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_run_ci_allele_cuda_matches_cpu(dev):
+    """run_ci with an allele grouping on the card: transcript intervals
+    beside the CPU's from the same count vectors (the Gamma draws of two
+    devices differ: bounds within 0.12 x width + 0.5 and lb <= ub), and a
+    transcript of one allele copies its allele's bounds exactly."""
+    from rsem_tpu_torch.engine.ci import CIConfig, run_ci
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
+
+    M = 240
+    gene_s, ta_s = _allele_groups(M)
+    rng = np.random.default_rng(6)
+    cvs = rng.poisson(rng.gamma(1.0, 30.0, M + 1), size=(64, M + 1)).astype(
+        np.float32)
+    eel, mw = rng.uniform(100, 400, M + 1), np.ones(M + 1)
+    cfg = CIConfig(nspc=50, seed=3)
+    ta = GroupInfo(ta_s)
+    g = run_ci(cvs, eel, mw, GroupInfo(gene_s), cfg, device=dev, ta=ta)
+    c = run_ci(cvs, eel, mw, GroupInfo(gene_s), cfg, device="cpu", ta=ta)
+    single = np.diff(ta_s) == 1
+    first = ta_s[:-1] - 1
+    for got, want, member in ((g.iso_tpm, c.iso_tpm, g.tpm),
+                              (g.iso_fpkm, c.iso_fpkm, g.fpkm)):
+        assert (got.lb <= got.ub).all()
+        width = np.maximum(want.ub - want.lb, 1.0)
+        assert (np.abs(got.lb - want.lb) < 0.12 * width + 0.5).all()
+        assert (np.abs(got.ub - want.ub) < 0.12 * width + 0.5).all()
+        for f in ("lb", "ub", "cqv"):
+            np.testing.assert_array_equal(
+                getattr(got, f)[single], getattr(member, f)[1:][
+                    first[single]])
 
 
 def test_run_ci_cuda_on_reference_countvectors(dev):

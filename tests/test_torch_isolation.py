@@ -178,8 +178,7 @@ def test_unported_options_raise(tmp_path):
         calculate_expression,
     )
 
-    for flag in ("run_prsem", "output_genome_bam", "sort_bam_by_coordinate",
-                 "sort_bam_by_read_name"):
+    for flag in ("run_prsem",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             calculate_expression("x.sam", str(tmp_path / "ref"),
                                  str(tmp_path / "o"),
