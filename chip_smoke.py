@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (rsem_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k3-parent DIR]
 
 Needs a CUDA device and nvcc (built with the kernels at first use).
 Imports nothing of JAX or of the JAX package. Phases, each of which exits
@@ -17,7 +17,8 @@ non-zero on failure:
     kernel (K1: per round inside one call of theta.SEGMENT rounds, and
     one round alone), plain version and, where one PyTorch call computes
     the same function, that call (CUDA events, >= 5 warm samples), and
-    the bound from bytes and operations. Then the theta loop forced to
+    the bound from bytes and operations (K2 and K3 at the profile and the
+    noise shape). Then the theta loop forced to
     500 rounds (min_round = max_round = 500) on the same frozen data, at
     segments of 1, 16, theta.SEGMENT and 64 rounds: wall ms per round.
  4. drive the main path: rsem_tpu_torch.engine.em.run_em on that workload
@@ -34,7 +35,8 @@ non-zero on failure:
     each (median, min, max); counts/N1 of the two within rtol 5e-3, atol
     1e-4 and the refit pro.p / npro.p within rtol 5e-3, atol 1e-5 (the
     tolerances of tests/test_model_loop.py:64-72); one warm pass of each
-    under torch.profiler.
+    under torch.profiler. K3 is held and timed on the loop's own
+    last-round inputs (K3Shapes, below).
  5b. the hybrid and native backends (C++ sidecar built with g++), once
     each at full width: wall time, the sidecar's thread count, K1 must
     launch under hybrid, sum(counts) = N1+N0, counts/N1 within rtol 5e-3,
@@ -76,7 +78,8 @@ non-zero on failure:
     than one window; sum(counts) = N1+N0, sum(TPM) = 1e6), then at half
     that budget (counts within rtol 1e-5), then with no model rounds for
     ms per model round; windows, peak device memory, wall times and the
-    workload's generation time.
+    workload's generation time; K3 on the first window's mate-1 profile and
+    noise rows (256 columns) with torch.rand weights (K3Shapes).
  9b. the fused loop on the largest prefix of that workload whose whole
     PreIdx stays under 98% of the default budget, and on the workload cut
     to one hit per read (est-RSPD model, so every paired leaf of the
@@ -157,6 +160,16 @@ non-zero on failure:
     the transcript-BAM write, tbam2gbam, the coordinate sort with its BAI
     and the name sort (the driver's --time stages).
 
+K3 is held against its plain version (rtol 1e-5, atol 1e-6) and timed at
+every input above that reaches it (K3Shapes: phase 3's two shapes, the
+fused loop's last round, one phase-9 window, phases 13-14's own inputs),
+each beside its bound from the bytes those inputs need (index rows of
+zero weight are not read) and the share of zero weights; the K3 row's
+`shapes` lists them. With --k3-parent DIR, the K3 of DIR's
+rsem_tpu_torch/csrc/table.cu (another tree, e.g. the parent commit
+unpacked with git archive) is built alone and timed beside this tree's on
+the same inputs, in turns; the port never calls it.
+
 The line before `kernels` holds the stage numbers (phases 11-12 under
 `simulate`, 13 under `allele`, 14 under `bam_options`); the next-to-last
 line is {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -211,9 +224,9 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def time_cuda(fn, samples: int = TIMING_SAMPLES, warm: int = 2):
-    """(median ms, min ms, max ms) of `fn` over `samples` CUDA-event
-    timings after `warm` untimed calls."""
+def time_samples(fn, samples: int = TIMING_SAMPLES, warm: int = 2):
+    """`samples` CUDA-event timings (ms) of `fn` after `warm` untimed
+    calls."""
     import torch
 
     for _ in range(warm):
@@ -228,6 +241,13 @@ def time_cuda(fn, samples: int = TIMING_SAMPLES, warm: int = 2):
         b.record()
         b.synchronize()
         ts.append(a.elapsed_time(b))
+    return ts
+
+
+def time_cuda(fn, samples: int = TIMING_SAMPLES, warm: int = 2):
+    """(median ms, min ms, max ms) of `fn` over `samples` CUDA-event
+    timings after `warm` untimed calls."""
+    ts = time_samples(fn, samples, warm)
     return statistics.median(ts), min(ts), max(ts)
 
 
@@ -251,6 +271,130 @@ def close(got, want, rtol: float, atol: float, what: str) -> float:
     if bool(bad.any()):
         fail(f"{what}: {int(bad.sum())} entries off (max abs err {err})")
     return err
+
+
+PLAIN_CHUNK = 1 << 19  # rows per call of K3's plain version
+
+
+def k3_parent(root: str):
+    """rsem_scatter_add of `root`'s rsem_tpu_torch/csrc/table.cu, built alone
+    with nvcc into this checkout's rsem_tpu_torch/_build/ and loaded with
+    ctypes: only timed, beside this tree's K3; the port never calls it."""
+    import ctypes
+    import hashlib
+
+    from rsem_tpu_torch.ops import _build
+
+    csrc = os.path.join(os.path.abspath(root), "rsem_tpu_torch", "csrc")
+    h = hashlib.sha256()
+    for name in ("table.cu", "common.cuh"):
+        with open(os.path.join(csrc, name), "rb") as f:
+            h.update(f.read())
+    lib = _build.BUILD_ROOT / f"k3-parent-{h.hexdigest()[:16]}" / "lib.so"
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", csrc,
+             os.path.join(csrc, "table.cu"), "-o", str(lib)],
+            capture_output=True, text=True)
+        if res.returncode:
+            fail(f"nvcc failed for {csrc}/table.cu:\n{res.stdout}"
+                 f"{res.stderr}")
+        log(f"K3 of {root}: built in {time.perf_counter() - t0:.2f} s")
+    fn = ctypes.CDLL(str(lib)).rsem_scatter_add
+    P = ctypes.c_void_p
+    fn.argtypes = [P, ctypes.c_int64, ctypes.c_int, P, ctypes.c_int, P, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class K3Shapes:
+    """K3 at every input a run gives it (phases 3, 5a, 9, 13, 14): each
+    held against its plain version, timed and bounded by `hold`, recorded
+    in `shapes`. `parent`: another tree's rsem_scatter_add (k3_parent),
+    timed beside this tree's K3 on the same inputs."""
+
+    REPS = 10  # launches per timed sample
+
+    def __init__(self, mem_rate: float = PEAKS[-1][1],
+                 op_rate: float = PEAKS[-1][2], parent=None):
+        self.rates = (mem_rate, op_rate)
+        self.parent = parent
+        self.shapes = []
+
+    def _launches(self, fn, idx, w, size: int, acc, reps: int = REPS):
+        """`reps` back-to-back launches of the C entry `fn` into `acc`, as
+        the fused loop and the window passes make them (the host runs
+        ahead, so a small input is not timed with the host's launch
+        overhead)."""
+        from rsem_tpu_torch.ops import _build
+
+        args = (idx.data_ptr(), idx.shape[0], idx.shape[1], w.data_ptr(),
+                size, acc.data_ptr(), _build.stream_of(idx))
+
+        def run():
+            for _ in range(reps):
+                err = fn(*args)
+                if err:
+                    fail(f"K3 launch returned CUDA error {err}")
+        return run
+
+    def hold(self, label: str, idx, w, size: int) -> dict:
+        """K3 on one input: held against its plain version (in f64,
+        PLAIN_CHUNK rows at a time) at rtol 1e-5, atol 1e-6; on the card
+        timed per launch with CUDA events over REPS launches into a
+        caller's f64 table (with a parent, the parent's K3 and this one in
+        turns: parent, this, this, parent; the parent's result held too)
+        beside its bound: the bytes these inputs need (every weight, the
+        index rows of the non-zero weights, the f64 table) and the adds
+        they make."""
+        import torch
+
+        from rsem_tpu_torch.ops import _build, table
+
+        rows, cols = idx.shape
+        want = torch.zeros(size, dtype=torch.float64, device=idx.device)
+        nz = n_add = 0
+        for a in range(0, rows, PLAIN_CHUNK):
+            i, ww = idx[a:a + PLAIN_CHUNK], w[a:a + PLAIN_CHUNK]
+            table.scatter_add_plain(i, ww, size, want)
+            live = ww != 0
+            nz += int(live.sum())
+            n_add += int(((i < size) & live[:, None]).sum())
+        rec = {"shape": label, "rows": rows, "cols": cols, "size": size,
+               "nonzero_rows": nz, "zero_share": 1 - nz / max(rows, 1),
+               "max_abs_err": close(table.scatter_add(idx, w, size), want,
+                                    1e-5, 1e-6, f"{label}: K3 scatter_add")}
+        if idx.device.type == "cuda":
+            rec["bound_ms"], rec["bound_by"] = bound(
+                rows * 4 + nz * cols * 4 + size * 8, n_add, *self.rates)
+            acc = torch.zeros_like(want)
+            run = self._launches(_build.lib().rsem_scatter_add, idx, w,
+                                 size, acc)
+            ps = []
+            if self.parent is None:
+                ts = time_samples(run)
+            else:
+                par = self._launches(self.parent, idx, w, size, acc)
+                acc.zero_()
+                self._launches(self.parent, idx, w, size, acc, 1)()
+                rec["parent_max_abs_err"] = close(
+                    acc, want, 1e-5, 1e-6, f"{label}: the parent's K3")
+                ps = time_samples(par)
+                ts = time_samples(run) + time_samples(run)
+                ps += time_samples(par)
+            n = self.REPS
+            rec.update(ms=statistics.median(ts) / n, ms_min=min(ts) / n,
+                       ms_max=max(ts) / n,
+                       parent_ms=statistics.median(ps) / n if ps else None)
+            other = f", parent {rec['parent_ms']:.4f} ms" if ps else ""
+            log(f"K3 {label}: [{rows}, {cols}] -> {size} slots, zero share "
+                f"{rec['zero_share']:.3f}: {rec['ms']:.4f} ms{other}, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err "
+                f"{rec['max_abs_err']:.3g}")
+        self.shapes.append(rec)
+        return rec
 
 
 def phase_device():
@@ -300,7 +444,7 @@ def make_workload():
     return ref, bundle, model
 
 
-def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate):
+def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate, k3):
     """Hold K1-K4 against their plain versions; returns the kernel rows
     (launches filled in later)."""
     import numpy as np
@@ -359,8 +503,10 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate):
     kn_ms = time_cuda(lambda: table.gather_sum(ntab, nflat))
     nbytes = H * cols * 4 + tab.numel() * 4 + H * 4
     b_ms, b_by = bound(nbytes, H * cols, mem_rate, op_rate)
-    log(f"K2 noise shape [{N}, {cols}]: {kn_ms[0]:.3f} ms "
-        f"(max abs err {err_n:.3g})")
+    bn_ms, _ = bound(N * cols * 4 + ntab.numel() * 4 + N * 4, N * cols,
+                     mem_rate, op_rate)
+    log(f"K2 noise shape [{N}, {cols}]: {kn_ms[0]:.3f} ms, bound "
+        f"{bn_ms:.4f} ms (max abs err {err_n:.3g})")
     rows.append(dict(
         name="gather_sum", id="K2", route="cuda",
         source="rsem_tpu_torch/csrc/table.cu",
@@ -369,21 +515,18 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate):
         max_abs_err=max(err, err_n), tolerance="rtol 1e-6, atol 1e-6",
         ms=k_ms[0], ms_min=k_ms[1], ms_max=k_ms[2], plain_ms=p_ms[0],
         library_ms=l_ms[0], library_call="F.embedding_bag(mode='sum')",
-        noise_shape_ms=kn_ms[0], bound_ms=b_ms, bound_by=b_by))
+        noise_shape_ms=kn_ms[0], noise_shape_bound_ms=bn_ms,
+        bound_ms=b_ms, bound_by=b_by))
 
     # K3: scatter-add of per-row weights
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     w = torch.rand(H, generator=g, device=dev, dtype=torch.float32)
     size = kcfg.pro_keys()
-    err = close(table.scatter_add(flat, w, size),
-                table.scatter_add_plain(flat, w, size), 1e-5, 1e-6,
-                "K3 scatter_add (profile)")
+    prof = k3.hold("phase 3 profile, torch.rand weights", flat, w, size)
     wn = torch.rand(N, generator=g, device=dev, dtype=torch.float32)
-    err_n = close(table.scatter_add(nflat, wn, kcfg.npro_keys()),
-                  table.scatter_add_plain(nflat, wn, kcfg.npro_keys()),
-                  1e-5, 1e-6, "K3 scatter_add (noise)")
-    k_ms = time_cuda(lambda: table.scatter_add(flat, w, size))
+    noise = k3.hold("phase 3 noise, torch.rand weights", nflat, wn,
+                    kcfg.npro_keys())
     p_ms = time_cuda(lambda: table.scatter_add_plain(flat, w, size),
                      samples=5, warm=1)
     idx_l = flat.reshape(-1).long().clamp(max=size)
@@ -391,21 +534,20 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate):
     acc = torch.zeros(size + 1, dtype=torch.float32, device=dev)
     l_ms = time_cuda(lambda: acc.index_add_(0, idx_l, w_rep))
     del idx_l, w_rep
-    kn_ms = time_cuda(lambda: table.scatter_add(nflat, wn, kcfg.npro_keys()))
-    nbytes = H * cols * 4 + H * 4 + size * 4
-    b_ms, b_by = bound(nbytes, H * cols, mem_rate, op_rate)
-    log(f"K3 noise shape [{N}, {cols}]: {kn_ms[0]:.3f} ms "
-        f"(max abs err {err_n:.3g})")
     rows.append(dict(
         name="scatter_add", id="K3", route="cuda",
         source="rsem_tpu_torch/csrc/table.cu",
         replaces="rsem_tpu/ops/pallas_table.py:125",
         shape=f"[{H}, {cols}] int32 idx, f32 [{H}] weights, {size} slots",
-        max_abs_err=max(err, err_n), tolerance="rtol 1e-5, atol 1e-6",
-        ms=k_ms[0], ms_min=k_ms[1], ms_max=k_ms[2], plain_ms=p_ms[0],
+        max_abs_err=max(prof["max_abs_err"], noise["max_abs_err"]),
+        tolerance="rtol 1e-5, atol 1e-6", ms=prof["ms"],
+        ms_min=prof["ms_min"], ms_max=prof["ms_max"], plain_ms=p_ms[0],
         library_ms=l_ms[0],
         library_call="index_add_ over pre-expanded indices and weights",
-        noise_shape_ms=kn_ms[0], bound_ms=b_ms, bound_by=b_by))
+        noise_shape_ms=noise["ms"], noise_shape_bound_ms=noise["bound_ms"],
+        parent_ms=prof["parent_ms"], parent_noise_shape_ms=noise["parent_ms"],
+        bound_ms=prof["bound_ms"], bound_by=prof["bound_by"],
+        shapes=k3.shapes))
 
     # K1: theta rounds over the frozen conprbs of the initial model
     pre = conprb.PreIdx(flat, None, nflat, None)
@@ -632,7 +774,7 @@ def agree(got, want, rtol: float, atol: float, what: str) -> float:
     return float(d.max())
 
 
-def phase_fused(ref, bundle, model0, dev, rounds: int = 10):
+def phase_fused(ref, bundle, model0, dev, k3, rounds: int = 10):
     """The fused model loop against the per-round path at full width.
     Returns (the fused run_em result, a summary for the log)."""
     import numpy as np
@@ -674,6 +816,24 @@ def phase_fused(ref, bundle, model0, dev, rounds: int = 10):
     log(f"fused loop: {rounds} rounds with no host sync (sync debug mode "
         f"'error'); {ms[0]:.4f} ms per round [{ms[1]:.4f}, {ms[2]:.4f}] "
         f"(CUDA events, median of 5)")
+    # K3 on the loop's own last-round inputs: flat1, nflat1 (flat2, nflat2)
+    scatter, seen = model_loop.scatter_add, []
+
+    def record(idx, w, size, acc=None):
+        seen.append((idx, w.clone(), size))
+        return scatter(idx, w, size, acc)
+
+    model_loop.scatter_add = record
+    try:
+        loop()
+    finally:
+        model_loop.scatter_add = scatter
+    last = seen[-(4 if kcfg.paired else 2):]
+    for (idx, w, size), what in zip(last, ("profile", "noise",
+                                           "mate-2 profile", "mate-2 noise")):
+        k3.hold(f"phase 5a {what}, the fused loop's last-round weights",
+                idx, w, size)
+    del seen, last
     del data, pre, tables, refd, m1, hd
     torch.cuda.empty_cache()
 
@@ -1202,9 +1362,10 @@ def phase_posterior_goldens(d, calc):
         f"expressed transcripts inside the checks")
 
 
-def phase_large(dev, seed: int = 0):
-    """The main path at a real sample's size (phase 9). Returns its
-    launches and a summary."""
+def phase_large(dev, k3, seed: int = 0):
+    """The main path at a real sample's size (phase 9); K3 held and timed
+    on one window through `k3` (a K3Shapes). Returns its launches and a
+    summary."""
     import numpy as np
     import torch
 
@@ -1278,6 +1439,25 @@ def phase_large(dev, seed: int = 0):
     ms_round = (wall - wall0) * 1e3 / 10
     log(f"large run: {ms_round:.1f} ms per model round ((wall {wall:.2f} s"
         f" - {wall0:.2f} s with no model rounds) / 10)")
+    # K3 on the first window's mate-1 rows (256 columns) as the windowed
+    # rounds build them, with torch.rand weights
+    refd, m1, _m2, hd = em.upload(ref, bundle, True, dev)
+    win = conprb.plan_windows(kcfg, bundle.hits.read_offsets,
+                              res.preidx_budget)[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    what = f"phase 9 window 1 of {res.windows}, mate 1"
+    flat1 = conprb.preidx_flat(kcfg, refd, m1, conprb.hits_window(hd, win))
+    k3.hold(f"{what} profile, torch.rand weights", flat1,
+             torch.rand(flat1.shape[0], generator=g, device=dev),
+             kcfg.pro_keys())
+    del flat1
+    nflat1 = conprb.noise_flat(kcfg, conprb.reads_window(m1, win))
+    k3.hold(f"{what} noise, torch.rand weights", nflat1,
+             torch.rand(nflat1.shape[0], generator=g, device=dev),
+             kcfg.npro_keys())
+    del nflat1, refd, m1, _m2, hd
+    torch.cuda.empty_cache()
     whole_fit = phase_whole_fit(ref, bundle, kcfg, dev, res.preidx_budget,
                                 free0)
     return launches, {
@@ -1778,7 +1958,7 @@ def driver_capture():
         ce.run_em, ce.run_gibbs = run_em, run_gibbs
 
 
-def hold_path_em(label: str, got, dev) -> dict:
+def hold_path_em(label: str, got, dev, k3=None) -> dict:
     """K4, K2, K3 and K1 against their plain versions on the inputs one
     CLI run gave them (driver_capture), at the tolerances of phase 3: K4
     builds each mate's PreIdx of the run's bundle (bit-identical); K2
@@ -1786,7 +1966,8 @@ def hold_path_em(label: str, got, dev) -> dict:
     1e-6); K3 scatters the run's final hit and noise posteriors by them
     (rtol 1e-5); K1 runs one round from the run's initial and one from its
     final theta over its final conprbs (theta and counts rtol 1e-5, stop
-    count within 2). Returns the max abs error of each kernel."""
+    count within 2). K3 goes through `k3.hold` (a K3Shapes), which also
+    times it on the card. Returns the max abs error of each kernel."""
     import torch
 
     from rsem_tpu_torch.convert import model_arrays_to_torch
@@ -1803,6 +1984,7 @@ def hold_path_em(label: str, got, dev) -> dict:
     ntab = table.padded_table(dm["log_npro"].reshape(-1), npro)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(dev)  # noqa
     w, wn = f32(res.frac_hit), f32(res.frac_noise)
+    k3 = k3 or K3Shapes()
     err = {"K4": 0.0, "K2": 0.0, "K3": 0.0, "K1": 0.0}
     for i, mate in enumerate((m1, m2) if model.spec.paired else (m1,)):
         what = f"{label}, mate {i + 1}"
@@ -1821,12 +2003,10 @@ def hold_path_em(label: str, got, dev) -> dict:
                   f"{what}: K2 gather_sum (noise)"))
         err["K3"] = max(
             err["K3"],
-            close(table.scatter_add(flat, w, pro),
-                  table.scatter_add_plain(flat, w, pro), 1e-5, 1e-6,
-                  f"{what}: K3 scatter_add (profile)"),
-            close(table.scatter_add(nflat, wn, npro),
-                  table.scatter_add_plain(nflat, wn, npro), 1e-5, 1e-6,
-                  f"{what}: K3 scatter_add (noise)"))
+            k3.hold(f"{what} profile, the run's final posteriors", flat, w,
+                    pro)["max_abs_err"],
+            k3.hold(f"{what} noise, the run's final posteriors", nflat, wn,
+                    npro)["max_abs_err"])
         del flat, nflat
     data = theta.scale_conprbs(
         hd, torch.as_tensor(res.log_conprb).to(dev),
@@ -1904,9 +2084,10 @@ def hold_path_gibbs(label: str, got, dev, sweeps: int = K5_SWEEPS) -> dict:
 
 
 def phase_allele(d: str, device: str = "cuda", n_genes: int = ALLELE_GENES,
-                 n_reads: int = ALLELE_READS):
+                 n_reads: int = ALLELE_READS, k3=None):
     """Allele-specific quantification through the port's CLI, in process,
-    at full width (phase 13). Returns (launches, summary)."""
+    at full width (phase 13); K3 held on its inputs through `k3` (a
+    K3Shapes). Returns (launches, summary)."""
     import numpy as np
     import torch
 
@@ -2007,7 +2188,7 @@ def phase_allele(d: str, device: str = "cuda", n_genes: int = ALLELE_GENES,
         # the kernels and the allele posteriors on this run's own inputs
         t5 = time.perf_counter()
         dev = torch.device(device)
-        holds = {"em": hold_path_em("phase 13", got, dev),
+        holds = {"em": hold_path_em("phase 13", got, dev, k3),
                  "gibbs": hold_path_gibbs("phase 13", got, dev)}
         gres = got["gibbs"]
         col = "posterior_standard_deviation_of_count"
@@ -2103,10 +2284,11 @@ def _shuffle_reads(src: str, dst: str, seed: int) -> None:
 
 def phase_genome_bam(d: str, device: str = "cuda", n_pairs: int = GENOME_PAIRS,
                      n_genes: int = GENOME_GENES,
-                     chrom_len: int = GENOME_CHROM_LEN):
+                     chrom_len: int = GENOME_CHROM_LEN, k3=None):
     """--output-genome-bam, --sort-bam-by-coordinate and
     --sort-bam-by-read-name through the port's CLI, in process, on a genome
-    reference (phase 14). Returns (launches, summary)."""
+    reference (phase 14); K3 held on its inputs through `k3` (a
+    K3Shapes). Returns (launches, summary)."""
     import numpy as np
     import torch
 
@@ -2158,7 +2340,7 @@ def phase_genome_bam(d: str, device: str = "cuda", n_pairs: int = GENOME_PAIRS,
                 fail("phase 14: calculate-expression failed")
             launches = {k: fn.launches for k, fn in wrappers.items()}
         t2 = time.perf_counter()
-        holds = hold_path_em("phase 14", got, torch.device(device))
+        holds = hold_path_em("phase 14", got, torch.device(device), k3)
         del got
         t2b = time.perf_counter()
         if cli(["calculate-expression", "--alignments", "shuf.sam", "gref",
@@ -2273,7 +2455,15 @@ def phase_genome_bam(d: str, device: str = "cuda", n_pairs: int = GENOME_PAIRS,
     return launches, out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k3-parent", metavar="DIR",
+                    help="another tree (e.g. the parent commit unpacked "
+                         "with git archive) whose K3 is timed beside this "
+                         "tree's at every K3 input")
+    args = ap.parse_args(argv)
     _name, mem_rate, op_rate = phase_device()
     import torch
 
@@ -2281,8 +2471,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    k3 = K3Shapes(mem_rate, op_rate,
+                  k3_parent(args.k3_parent) if args.k3_parent else None)
     ref, bundle, model = make_workload()
-    rows = phase_kernels(ref, bundle, model, dev, mem_rate, op_rate)
+    rows = phase_kernels(ref, bundle, model, dev, mem_rate, op_rate, k3)
     torch.cuda.empty_cache()
     launches, cold, warm, rounds = phase_main_path(ref, bundle, model, dev)
     from rsem_tpu_torch.engine.em import EMConfig, run_em
@@ -2291,7 +2483,7 @@ def main() -> int:
         copy.deepcopy(model), ref, bundle, EMConfig(),
         need_posteriors=False, device=dev))
     torch.cuda.empty_cache()
-    fused_res, fused = phase_fused(ref, bundle, model, dev)
+    fused_res, fused = phase_fused(ref, bundle, model, dev, k3)
     torch.cuda.empty_cache()
     backends = phase_backends(ref, bundle, model, dev, fused_res)
     del fused_res
@@ -2306,7 +2498,7 @@ def main() -> int:
     sim_tpm = em.tpm  # phase 11 draws from phase 6's fit
     del bundle, model, em
     torch.cuda.empty_cache()
-    large_launches, large = phase_large(dev)
+    large_launches, large = phase_large(dev, k3)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         ingest = phase_ingest(d)
@@ -2315,12 +2507,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         simulate["round_trip"] = phase_round_trip(d)
     with tempfile.TemporaryDirectory() as d:
-        allele_launches, allele = phase_allele(d)
+        allele_launches, allele = phase_allele(d, k3=k3)
     for k, n in allele_launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the allele path")
     with tempfile.TemporaryDirectory() as d:
-        bam_launches, bam_options = phase_genome_bam(d)
+        bam_launches, bam_options = phase_genome_bam(d, k3=k3)
     for k, n in bam_launches.items():
         if n <= 0 and k not in OFF_EM_PATH:
             fail(f"kernel {k} was not launched on the genome-BAM run")

@@ -357,6 +357,11 @@ def run_model_loop(cfg: KernelConfig, data: ModelLoopData,
         gld_acc = torch.empty(gspan, dtype=torch.float64, device=dev)
     if cfg.est_rspd:
         rspd_acc = torch.empty(cfg.B, dtype=torch.float64, device=dev)
+    # K3 adds both mates into these f64 tables, read once a round as f32
+    pro_acc = torch.empty(pro_keys, dtype=torch.float64, device=dev)
+    npro_acc = torch.empty(npro_keys, dtype=torch.float64, device=dev)
+    pro_cnt = torch.empty(pro_keys, dtype=torch.float32, device=dev)
+    npro_cnt = torch.empty(npro_keys, dtype=torch.float32, device=dev)
 
     theta = theta0.to(device=dev, dtype=torch.float32)
     t, suff = tables0, {}
@@ -399,13 +404,16 @@ def run_model_loop(cfg: KernelConfig, data: ModelLoopData,
         theta = (counts / counts.sum()).to(torch.float32)
 
         # sufficient statistics and the on-device finish
-        suff["pro"] = scatter_add(pre.flat1, frac, pro_keys)
-        suff["npro"] = scatter_add(pre.nflat1, frac_noise, npro_keys)
+        pro_acc.zero_()
+        npro_acc.zero_()
+        scatter_add(pre.flat1, frac, pro_keys, pro_acc)
+        scatter_add(pre.nflat1, frac_noise, npro_keys, npro_acc)
         if cfg.paired:
-            suff["pro"] = suff["pro"] + scatter_add(pre.flat2, frac,
-                                                    pro_keys)
-            suff["npro"] = suff["npro"] + scatter_add(pre.nflat2, frac_noise,
-                                                      npro_keys)
+            scatter_add(pre.flat2, frac, pro_keys, pro_acc)
+            scatter_add(pre.nflat2, frac_noise, npro_keys, npro_acc)
+        suff["pro"] = pro_cnt.copy_(pro_acc)
+        suff["npro"] = npro_cnt.copy_(npro_acc)
+        if cfg.paired:
             suff["gld"] = gld_acc.zero_().index_add_(
                 0, data.ins_idx, frac.double()).to(torch.float32)
         if cfg.est_rspd:

@@ -87,10 +87,12 @@ def scatter_add(idx: torch.Tensor, w: torch.Tensor, size: int,
     """f32 [size]: counts[t] += w[r] for every idx[r, c] == t < size.
 
     idx: [rows, cols] int32; w: f32 [rows] per-ROW weight (broadcast across
-    the row's columns). Indices >= size (sentinels) are dropped. acc: a
-    float64 [size] table that the counts are added into and that is
-    returned (the passes over a windowed PreIdx sum their windows there);
-    without it the counts come back as float32."""
+    the row's columns). Indices >= size (sentinels) are dropped, and rows
+    of weight 0 are skipped. acc: a float64 [size] table that the counts
+    are added into and that is returned (the fused loop's rounds and the
+    passes over a windowed PreIdx keep theirs, so their launches allocate
+    nothing); without it the counts come back as float32. Tables of more
+    than 58,112 slots (227 KB of f32) are refused on CUDA."""
     _check_idx(idx)
     if w.dtype != torch.float32 or w.shape != (idx.shape[0],):
         raise ValueError("w must be float32 [rows]")

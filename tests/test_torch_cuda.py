@@ -93,6 +93,90 @@ def test_scatter_add_into_accumulator(dev):
                                atol=1e-6)
 
 
+def _k3_inputs(kind, rows, cols, size, weights, dev, seed=0):
+    """Index rows and weights where K3's lanes contend most or oddly:
+    every entry on one slot, uniform slots of a small or large table, rows
+    of sentinels only (the table size and values far above it)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if kind == "one_slot":
+        idx = torch.full((rows, cols), min(3, size - 1), dtype=torch.int32,
+                         device=dev)
+    elif kind == "sentinels":
+        idx = torch.full((rows, cols), size, dtype=torch.int32, device=dev)
+        idx[:, 1::2] = 2**31 - 1
+    else:
+        idx = torch.randint(0, size + 1, (rows, cols), generator=g,
+                            dtype=torch.int32, device=dev)
+    w = torch.rand(rows, generator=g, device=dev)
+    if weights == "zero":
+        w.zero_()
+    elif weights == "seventh":
+        w[::7] = 0.0
+    return idx, w
+
+
+@pytest.mark.parametrize("kind,rows,cols,size,weights", [
+    ("one_slot", 4096, 128, 1000, "rand"),
+    ("one_slot", 4096, 256, 5, "seventh"),
+    ("uniform", 3000, 128, 5, "rand"),
+    ("uniform", 3000, 256, 25, "seventh"),
+    ("sentinels", 2000, 128, 1000, "rand"),
+    ("uniform", 3000, 128, 1000, "zero"),
+    ("uniform", 1, 128, 1000, "rand"),
+    ("uniform", 31, 256, 1000, "seventh"),
+    ("uniform", 2**20 + 3, 128, 500, "seventh"),
+    ("uniform", 3000, 128, 12288, "rand"),
+    ("uniform", 3000, 256, 58112, "seventh"),
+])
+def test_scatter_add_contention(dev, kind, rows, cols, size, weights):
+    """K3 against its plain version (on the card, in f64) where slots
+    collide or the table is at the edges of the shared-memory sizes: 48 KB
+    (12,288 slots) and the 227 KB limit (58,112)."""
+    idx, w = _k3_inputs(kind, rows, cols, size, weights, dev)
+    n0 = table.scatter_add.launches
+    got = table.scatter_add(idx, w, size)
+    assert table.scatter_add.launches == n0 + 1
+    want = table.scatter_add_plain(idx, w, size)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    if weights == "zero" or kind == "sentinels":
+        assert not bool(got.any())
+
+
+def test_scatter_add_refuses_table_over_shared_memory(dev):
+    idx, w = _k3_inputs("uniform", 64, 128, 58113, "rand", dev)
+    n0 = table.scatter_add.launches
+    with pytest.raises(RuntimeError):
+        table.scatter_add(idx, w, 58113)
+    assert table.scatter_add.launches == n0
+
+
+@pytest.mark.parametrize("cols", [128, 256])
+def test_scatter_add_windows_into_accumulator(dev, cols):
+    """Three windows of composed-like rows (few slots, many repeats) add
+    into one f64 table, as the windowed passes do."""
+    idx, w = _k3_inputs("uniform", 5000, cols, 1000, "seventh", dev, seed=3)
+    idx = torch.where(idx < 1000, idx % 37 * 25, idx)  # 37 slots in use
+    acc = torch.zeros(1000, dtype=torch.float64, device=dev)
+    for a, b in ((0, 1700), (1700, 1703), (1703, 5000)):
+        assert table.scatter_add(idx[a:b], w[a:b], 1000, acc) is acc
+    want = table.scatter_add_plain(idx, w, 1000)
+    torch.testing.assert_close(acc.float(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_scatter_add_allocates_nothing(dev):
+    """A launch into a caller's accumulator allocates no device memory."""
+    idx, w = _k3_inputs("uniform", 20000, 128, 1000, "seventh", dev)
+    acc = torch.zeros(1000, dtype=torch.float64, device=dev)
+    table.scatter_add(idx, w, 1000, acc)  # builds the kernels
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    for _ in range(3):
+        table.scatter_add(idx, w, 1000, acc)
+    after = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    assert after == before
+
+
 def test_wrappers_check_inputs(dev):
     idx = torch.zeros((4, 128), dtype=torch.int64, device=dev)
     tab = torch.zeros(10, device=dev)
@@ -412,6 +496,31 @@ def test_model_loop_makes_no_host_sync(dev):
     assert bool(torch.isfinite(theta).all())
     assert abs(float(theta.double().sum()) - 1.0) < 1e-5
     assert set(suff) == {"pro", "npro", "gld", "rspd"}
+
+
+def test_model_loop_k3_allocates_nothing(dev, monkeypatch):
+    """Every K3 launch of the fused loop (paired: both mates' profile and
+    noise rows, each round) adds into the loop's own f64 accumulators and
+    allocates no device memory."""
+    from rsem_tpu_torch.ops import model_loop
+
+    args = _model_loop_inputs(True, dev)
+    grown, accs = [], set()
+    scatter = model_loop.scatter_add
+
+    def counted(idx, w, size, acc=None):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        out = scatter(idx, w, size, acc)
+        grown.append(torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+                     - before)
+        accs.add(None if acc is None else acc.data_ptr())
+        return out
+
+    monkeypatch.setattr(model_loop, "scatter_add", counted)
+    model_loop.run_model_loop(*args[:4], 3, *args[4:])
+    assert grown == [0] * 12
+    assert None not in accs and len(accs) == 2
 
 
 @pytest.mark.parametrize("table", ["M", "relabelled"])

@@ -87,6 +87,52 @@ def test_scatter_add_matches_pallas(size, X, seed):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def composed_indices():
+    """The profile PreIdx and noise indices of a quality-bearing workload
+    (~500 and ~200 rows), whose slots collide within a row as they do on
+    the main path (the random cases above spread them uniformly), with
+    weights (one row in 7 zero) and the Pallas kernel's counts. One
+    interpret-mode call scatters both into one table, the noise slots
+    after the profile's, because each call costs seconds here."""
+    ref, bundle, _spec, model = synthetic_arrays_fast(
+        n_reads=200, M=40, read_len=100, tx_len=600, has_qual=True, seed=4)
+    t_ref = reference_from_arrays(host_state(ref))
+    t_bundle = bundle_from_arrays(host_state(bundle))
+    t_model = model_from_arrays(host_state(model), refs=t_ref)
+    refd, m1, _m2, hd = tem.upload(t_ref, t_bundle, False, CPU)
+    kcfg = TKernelConfig.from_model(t_model, 100)
+    pro, npro = kcfg.pro_keys(), kcfg.npro_keys()
+    flat = tconprb.preidx_flat(kcfg, refd, m1, hd).numpy()
+    nflat = tconprb.noise_flat(kcfg, m1).numpy()
+    rng = np.random.default_rng(11)
+    w = rng.random(flat.shape[0] + nflat.shape[0], dtype=np.float32)
+    w[::7] = 0.0
+    both = np.concatenate([np.where(flat < pro, flat, pro + npro),
+                           nflat + pro]).astype(np.int32)
+    want = np.asarray(pt.scatter_add(jnp.asarray(both), jnp.asarray(w),
+                                     pro + npro, interpret=True))
+    cut = flat.shape[0]
+    return {"profile": (flat, pro, w[:cut], want[:pro]),
+            "noise": (nflat, npro, w[cut:], want[pro:pro + npro])}
+
+
+@pytest.mark.parametrize("which", ["profile", "noise"])
+def test_scatter_add_composed_matches_pallas(composed_indices, which):
+    flat, size, w, want = composed_indices[which]
+    rows = flat.shape[0]
+    # slots repeat inside rows: fewer distinct slots than valid lanes
+    distinct = sum(len(np.unique(r[r < size])) for r in flat)
+    assert distinct < 0.9 * int((flat < size).sum())
+    flat = torch.as_tensor(flat)
+    got = ttable.scatter_add(flat, torch.as_tensor(w), size).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+    acc = torch.zeros(size, dtype=torch.float64)
+    for a, b in ((0, rows // 3), (rows // 3, rows)):
+        ttable.scatter_add(flat[a:b], torch.as_tensor(w[a:b]), size, acc)
+    np.testing.assert_allclose(acc.numpy(), want, rtol=2e-5, atol=1e-5)
+
+
 def test_wide_rows_sum_whole():
     """Rows of 256 columns (150 bp reads) are summed whole, which equals
     the TPU path's [H*2, 128] reshape followed by a pairwise sum."""
