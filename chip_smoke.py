@@ -159,10 +159,36 @@ non-zero on failure:
     (hold_path_em; launch counts are of that run alone). Records/s of
     the transcript-BAM write, tbam2gbam, the coordinate sort with its BAI
     and the name sort (the driver's --time stages).
+15. pRSEM through the port's CLI on a genome reference at full width: a
+    seeded genome of 8 x 9 Mbp with 12,000 genes (testing.synthetic_genome,
+    seed 15): 8,000 of two isoforms, 4,000 of one isoform spanning at
+    least 1,003 bp in slots of 6,000 bp, so no other TSS lies within 500
+    bp of theirs (pRSEM's training genes); 20,000 transcripts
+    (prepare-reference --gtf); a BED of peaks over the TSSs of a seeded
+    40% of the genes; 1M single-end reads from golden.model with
+    lognormal TPMs, the peak genes' raised 4x (theta0 0.05), each aligned
+    to its isoform and, where it lies in shared exons, to the sibling;
+    calculate-expression --calc-pme --run-pRSEM --chipseq-peak-file
+    --keep-intermediate-files --no-bam-output --time at the driver's
+    Gibbs defaults, launch counts zeroed just before and read just after
+    (K1-K5 must launch; K5 in both Gibbs runs, the uniform prior's and the
+    rerun with pRSEM's prior). Gates: p-value < 0.01; one prior line per
+    isoform, the peak partition with the larger alpha; the uniform-prior
+    tables moved to out.stat/; posterior_mean_count summing to the
+    aligned reads within 2%; gene expected counts within 1e-2 of the
+    truth. K1-K4 on the run's inputs (hold_path_em) and K5 on both Gibbs
+    runs' (hold_path_gibbs, with the pseudo-counts each run used). 15b:
+    learn_prior on the run's uniform-prior PME counts with the pk model
+    and two tagAlign replicates of 1M tags each (60% from fragments
+    around the planted TSSs, the rest anywhere), peaks called natively:
+    the called peaks overlap >= 95% of the planted ones and cover < 4x
+    their footprint (tests/test_chipseq_groundtruth.py:68-84); the prior
+    is informative. Stage times, K5 launches per Gibbs run, the training
+    set's size and the card's name and power limit are printed.
 
 K3 is held against its plain version (rtol 1e-5, atol 1e-6) and timed at
 every input above that reaches it (K3Shapes: phase 3's two shapes, the
-fused loop's last round, one phase-9 window, phases 13-14's own inputs),
+fused loop's last round, one phase-9 window, phases 13-15's own inputs),
 each beside its bound from the bytes those inputs need (index rows of
 zero weight are not read) and the share of zero weights; the K3 row's
 `shapes` lists them. With --k3-parent DIR, the K3 of DIR's
@@ -171,7 +197,8 @@ unpacked with git archive) is built alone and timed beside this tree's on
 the same inputs, in turns; the port never calls it.
 
 The line before `kernels` holds the stage numbers (phases 11-12 under
-`simulate`, 13 under `allele`, 14 under `bam_options`); the next-to-last
+`simulate`, 13 under `allele`, 14 under `bam_options`, 15 under
+`prsem`); the next-to-last
 line is {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
 """
 
@@ -214,6 +241,13 @@ ROUND_TRIP_READS = 100_000  # phase 12 (the size of golden_sim)
 ALLELE_GENES, ALLELE_READS = 5000, 1_000_000  # phase 13
 # phase 14: a genome of 4 x 1 Mbp, 1,000 genes of two isoforms
 GENOME_PAIRS, GENOME_GENES, GENOME_CHROM_LEN = 100_000, 1000, 1_000_000
+# phase 15: pRSEM on a genome of 8 x 9 Mbp, 12,000 genes (4,000 of one
+# isoform: pRSEM's training genes), TSS peaks on 40% of the genes, whose
+# TPM is raised 4x; 15b: two ChIP-seq replicates of 1M tags each
+PRSEM_GENES, PRSEM_SINGLE, PRSEM_READS = 12_000, 4000, 1_000_000
+PRSEM_CHROMS, PRSEM_CHROM_LEN = 8, 9_000_000
+PRSEM_PEAK_SHARE, PRSEM_PEAK_TPM = 0.4, 4.0
+CHIP_TAGS, CHIP_FRAGLEN, CHIP_READ_LEN = 1_000_000, 150, 50
 
 
 def fail(msg: str):
@@ -397,18 +431,21 @@ class K3Shapes:
         return rec
 
 
+def _card() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    log(_card())
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
         f"count {torch.cuda.device_count()}")
@@ -1934,33 +1971,41 @@ def _sum_ok(parts, total, k, what: str) -> float:
 @contextlib.contextmanager
 def driver_capture():
     """For the length of one CLI run, the driver's run_em and run_gibbs
-    record their inputs (the model copied before run_em refits it, inside
-    the run's timed em stage) and their results; yields the record."""
+    record every call, in order: (args, kwargs, result, the kernel
+    launches made during the call); run_em's model is recorded as a copy
+    taken before run_em refits it (inside the run's timed em stage).
+    Yields {"run_em": [...], "run_gibbs": [...]}."""
     ce = importlib.import_module(
         "rsem_tpu_torch.pipeline.calculate_expression")
-    got = {}
-    run_em, run_gibbs = ce.run_em, ce.run_gibbs
+    got = {"run_em": [], "run_gibbs": []}
+    orig = {name: getattr(ce, name) for name in got}
+    wrappers = kernel_wrappers()
 
-    def em_rec(model, *args, **kw):
-        got["em_in"] = (copy.deepcopy(model), args)
-        got["em"] = run_em(model, *args, **kw)
-        return got["em"]
+    def recorder(name):
+        def rec(*args, **kw):
+            kept = args
+            if name == "run_em":
+                kept = (copy.deepcopy(args[0]),) + args[1:]
+            n0 = {k: fn.launches for k, fn in wrappers.items()}
+            res = orig[name](*args, **kw)
+            got[name].append((kept, kw, res, {
+                k: fn.launches - n0[k] for k, fn in wrappers.items()}))
+            return res
+        return rec
 
-    def gibbs_rec(*args, **kw):
-        got["gibbs_in"] = (args, kw)
-        got["gibbs"] = run_gibbs(*args, **kw)
-        return got["gibbs"]
-
-    ce.run_em, ce.run_gibbs = em_rec, gibbs_rec
+    for name in got:
+        setattr(ce, name, recorder(name))
     try:
         yield got
     finally:
-        ce.run_em, ce.run_gibbs = run_em, run_gibbs
+        for name, fn in orig.items():
+            setattr(ce, name, fn)
 
 
-def hold_path_em(label: str, got, dev, k3=None) -> dict:
+def hold_path_em(label: str, call, dev, k3=None) -> dict:
     """K4, K2, K3 and K1 against their plain versions on the inputs one
-    CLI run gave them (driver_capture), at the tolerances of phase 3: K4
+    run_em call of a CLI run gave them (a driver_capture record), at the
+    tolerances of phase 3: K4
     builds each mate's PreIdx of the run's bundle (bit-identical); K2
     gathers the initial model's profile and noise tables over them (rtol
     1e-6); K3 scatters the run's final hit and noise posteriors by them
@@ -1974,8 +2019,7 @@ def hold_path_em(label: str, got, dev, k3=None) -> dict:
     from rsem_tpu_torch.engine import em as em_mod
     from rsem_tpu_torch.ops import conprb, table, theta
 
-    model, (ref, bundle, _cfg) = got["em_in"]
-    res = got["em"]
+    (model, ref, bundle, _cfg), _kw, res, _launches = call
     refd, m1, m2, hd = em_mod.upload(ref, bundle, model.spec.paired, dev)
     kcfg = em_mod.kernel_config(model, bundle, int(m1.codes.shape[1]))
     dm = model_arrays_to_torch(model.device_arrays(), dev)
@@ -2027,16 +2071,18 @@ def hold_path_em(label: str, got, dev, k3=None) -> dict:
     return err
 
 
-def hold_path_gibbs(label: str, got, dev, sweeps: int = K5_SWEEPS) -> dict:
-    """K5 and the allele posteriors on the inputs the CLI run gave
-    run_gibbs (driver_capture). K5 against its plain version from the
+def hold_path_gibbs(label: str, call, dev, sweeps: int = K5_SWEEPS) -> dict:
+    """K5 and the posteriors on the inputs one run_gibbs call of a CLI run
+    gave it (a driver_capture record; its pseudo-counts too, pRSEM's prior
+    where the rerun passed one). K5 against its plain version from the
     run's own initial chain state and seeds, over its first `sweeps`
     sweeps (identical chains, as phase 7). run_gibbs on the card and on
     the CPU, the same inputs at `sweeps` sweeps: identical count vectors,
     every moment within rtol 1e-5 (atol 1e-6). The run's own moments
     against a float64 recomputation from its count vectors: pme_c, pve_c
-    and pve_c_trans (the variance of each transcript's summed allele
-    counts) within rtol 1e-5 (atol 1e-6). Returns the max abs errors."""
+    and, with an allele reference, pve_c_trans (the variance of each
+    transcript's summed allele counts) within rtol 1e-5 (atol 1e-6).
+    Returns the max abs errors."""
     import dataclasses
 
     import numpy as np
@@ -2045,7 +2091,7 @@ def hold_path_gibbs(label: str, got, dev, sweeps: int = K5_SWEEPS) -> dict:
     from rsem_tpu_torch.engine import gibbs as eg
     from rsem_tpu_torch.ops import gibbs
 
-    args, kw = got["gibbs_in"]
+    args, kw, res, _launches = call
     hits, lcp, lnp, M, N0, _eel, _mw, _gi, cfg = args
     init, pseudo, _totc = eg.setup_counts(cfg, M, N0, hits.n_reads,
                                           kw.get("omit"), kw.get("prior"))
@@ -2070,16 +2116,19 @@ def hold_path_gibbs(label: str, got, dev, sweeps: int = K5_SWEEPS) -> dict:
     if not torch.equal(on[dev].countvectors.cpu(), on["cpu"].countvectors):
         fail(f"{label}: run_gibbs on the card and on the CPU drew different "
              f"count vectors over {sweeps} sweeps")
+    ta = kw.get("ta")
+    fields = ("pme_c", "pve_c", "pme_tpm", "pme_fpkm", "pve_c_genes") + (
+        ("pve_c_trans",) if ta is not None else ())
     err = {"cpu": max(near(getattr(on[dev], f), getattr(on["cpu"], f), f)
-                      for f in ("pme_c", "pve_c", "pme_tpm", "pme_fpkm",
-                                "pve_c_genes", "pve_c_trans"))}
-    res, ta = got["gibbs"], kw["ta"]
+                      for f in fields)}
     cv = res.countvectors.double().cpu().numpy()
-    tsum = np.add.reduceat(cv[:, 1:], ta.starts[:-1] - 1, axis=1)
     err["f64"] = max(near(res.pme_c, cv.mean(0), "pme_c"),
-                     near(res.pve_c, cv.var(0, ddof=1), "pve_c"),
-                     near(res.pve_c_trans, tsum.var(0, ddof=1),
-                          "pve_c_trans"))
+                     near(res.pve_c, cv.var(0, ddof=1), "pve_c"))
+    if ta is not None:
+        tsum = np.add.reduceat(cv[:, 1:], ta.starts[:-1] - 1, axis=1)
+        err["f64"] = max(err["f64"], near(res.pve_c_trans,
+                                          tsum.var(0, ddof=1),
+                                          "pve_c_trans"))
     return err
 
 
@@ -2188,9 +2237,10 @@ def phase_allele(d: str, device: str = "cuda", n_genes: int = ALLELE_GENES,
         # the kernels and the allele posteriors on this run's own inputs
         t5 = time.perf_counter()
         dev = torch.device(device)
-        holds = {"em": hold_path_em("phase 13", got, dev, k3),
-                 "gibbs": hold_path_gibbs("phase 13", got, dev)}
-        gres = got["gibbs"]
+        holds = {"em": hold_path_em("phase 13", got["run_em"][0], dev, k3),
+                 "gibbs": hold_path_gibbs("phase 13", got["run_gibbs"][0],
+                                          dev)}
+        gres = got["run_gibbs"][0][2]
         col = "posterior_standard_deviation_of_count"
         for hdr, rows, want, what in (
                 (ah, arows, gres.pme_c[1:], "allele PME"),
@@ -2340,7 +2390,8 @@ def phase_genome_bam(d: str, device: str = "cuda", n_pairs: int = GENOME_PAIRS,
                 fail("phase 14: calculate-expression failed")
             launches = {k: fn.launches for k, fn in wrappers.items()}
         t2 = time.perf_counter()
-        holds = hold_path_em("phase 14", got, torch.device(device), k3)
+        holds = hold_path_em("phase 14", got["run_em"][0],
+                             torch.device(device), k3)
         del got
         t2b = time.perf_counter()
         if cli(["calculate-expression", "--alignments", "shuf.sam", "gref",
@@ -2455,6 +2506,244 @@ def phase_genome_bam(d: str, device: str = "cuda", n_pairs: int = GENOME_PAIRS,
     return launches, out
 
 
+def _chip_replicates(ts, planted, n_tags: int, chrom_len: int, seed: int):
+    """Two tagAlign replicates of n_tags each (tests/test_prsem.py's
+    construction): 60% of the tags from fragments centred within 80 bp of
+    a planted TSS (a + tag at the fragment's left end or a - tag at its
+    right end), the rest from fragments anywhere on the chromosomes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    chroms = sorted({t.seqname for t in ts.transcripts})
+    pc = np.array([chroms.index(c) for c, _ in planted])
+    pt = np.array([tss for _c, tss in planted])
+    fl, rl = CHIP_FRAGLEN, CHIP_READ_LEN
+    paths = []
+    for r in range(2):
+        n_pk = int(0.6 * n_tags)
+        k = rng.integers(0, len(planted), n_pk)
+        ch = np.concatenate([pc[k], rng.integers(0, len(chroms),
+                                                 n_tags - n_pk)])
+        centre = np.concatenate([pt[k] + rng.integers(-80, 81, n_pk),
+                                 rng.integers(fl, chrom_len - fl,
+                                              n_tags - n_pk)])
+        minus = rng.random(n_tags) < 0.5
+        start = np.where(minus, centre + fl // 2 - rl, centre - fl // 2)
+        start = np.maximum(start, 0)
+        path = f"chip_rep{r + 1}.tagAlign"
+        with open(path, "w") as f:
+            f.write("".join(
+                f"{chroms[c]}\t{a}\t{a + rl}\tN\t1000\t{'-' if m else '+'}\n"
+                for c, a, m in zip(ch.tolist(), start.tolist(),
+                                   minus.tolist())))
+        paths.append(path)
+    return paths
+
+
+def phase_prsem(d: str, device: str = "cuda", n_genes: int = PRSEM_GENES,
+                n_single: int = PRSEM_SINGLE, n_reads: int = PRSEM_READS,
+                n_chrom: int = PRSEM_CHROMS,
+                chrom_len: int = PRSEM_CHROM_LEN, n_tags: int = CHIP_TAGS,
+                gibbs_args=(), k3=None):
+    """calculate-expression --calc-pme --run-pRSEM through the port's CLI,
+    in process, on a genome reference at full width (phase 15), then the
+    ChIP-seq leg on tagAlign replicates (15b); K3 held on its inputs
+    through `k3` (a K3Shapes). gibbs_args: extra calculate-expression
+    arguments (the driver's Gibbs defaults when empty). Returns
+    (launches, K5 launches of each Gibbs run, summary)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.__main__ import main as cli
+    from rsem_tpu_torch.engine import simulate as sim
+    from rsem_tpu_torch.model.generative import GenerativeModel
+    from rsem_tpu_torch.prsem import PrsemConfig, learn_prior, read_peaks
+    from rsem_tpu_torch.refprep.reference import Reference
+    from rsem_tpu_torch.refprep.transcripts import Transcripts
+    from rsem_tpu_torch.testing import (
+        SharedExonSiblings,
+        lognormal_tpm,
+        provenance_sam,
+        synthetic_genome,
+    )
+
+    wrappers = kernel_wrappers()
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        t0 = time.perf_counter()
+        synthetic_genome(".", seed=15, n_chrom=n_chrom, chrom_len=chrom_len,
+                         n_genes=n_genes, n_single=n_single)
+        if cli(["prepare-reference", "--gtf", "anno.gtf", "genome.fa",
+                "gref", "-q"]) != 0:
+            fail("phase 15: prepare-reference failed")
+        ref = Reference.load_seq("gref.seq")
+        ts = Transcripts.read_ti("gref.ti")
+        t1 = time.perf_counter()
+        # TSS peaks on a seeded 40% of the genes (isoform 1's TSS), whose
+        # transcripts' TPM is raised
+        rng = np.random.default_rng(15)
+        gene_ids = sorted({t.gene_id for t in ts.transcripts})
+        pk_genes = {g for g, p in zip(gene_ids, rng.random(len(gene_ids)))
+                    if p < PRSEM_PEAK_SHARE}
+        planted = [(t.seqname, t.structure[0][0] if t.strand == "+"
+                    else t.structure[-1][1]) for t in ts.transcripts
+                   if t.gene_id in pk_genes and t.transcript_id.endswith(
+                       ".0")]
+        with open("peaks.bed", "w") as f:
+            f.write("".join(f"{c}\t{tss - 101}\t{tss + 100}\n"
+                            for c, tss in planted))
+        pk_tx = np.array([t.gene_id in pk_genes for t in ts.transcripts])
+        tpm = lognormal_tpm(ref.M, seed=15)
+        tpm[1:][pk_tx] *= PRSEM_PEAK_TPM
+        tpm[1:] *= 1e6 / tpm[1:].sum()
+        model = GenerativeModel.read(os.path.join(GOLD, "golden.model"),
+                                     refs=ref)
+        sim.simulate_reads(model, ref, tpm, SIM_THETA0, n_reads, "sim",
+                           seed=15, device=device)
+        sib = SharedExonSiblings(ts)
+        truth = provenance_sam(ref, "sim.fq", "aln.sam", also=sib)
+        os.remove("sim.fq")
+        n_mapped = float(truth[1:].sum())
+        t2 = time.perf_counter()
+        with driver_capture() as got:
+            for fn in wrappers.values():
+                fn.launches = 0
+            rc = cli(["calculate-expression", "--alignments", "aln.sam",
+                      "gref", "out", "-q", "--device", device, "--calc-pme",
+                      "--run-pRSEM", "--chipseq-peak-file", "peaks.bed",
+                      "--keep-intermediate-files", "--no-bam-output",
+                      "--seed", "15", "--time"] + list(gibbs_args))
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+        t3 = time.perf_counter()
+        if rc != 0:
+            fail("phase 15: calculate-expression --run-pRSEM failed")
+        if len(got["run_gibbs"]) != 2:
+            fail(f"phase 15: {len(got['run_gibbs'])} Gibbs runs, not 2 (the "
+                 f"prior was not informative?)")
+        k5_runs = [c[3]["sweep_part"] for c in got["run_gibbs"]]
+        stages = _stage_seconds("out.time")
+
+        # gates: the prior, the moved tables, the final tables
+        pval, logl = (float(x) for x in open("out.stat/out_prsem.pval_LL")
+                      .read().splitlines()[1].split("\t"))
+        if not pval < 0.01:
+            fail(f"phase 15: pRSEM p-value {pval} is not below 0.01")
+        prior = [float(line.split()[0]) for line in
+                 open("out.temp/out_prsem.all_tr_prior")]
+        fh, frows = _rows("out.temp/out_prsem.all_tr_features")
+        part = _col(fh, frows, "partition").astype(int)
+        n_train = int(_col(fh, frows, "is_training").sum())
+        if len(prior) != ref.M or len(frows) != ref.M:
+            fail(f"phase 15: {len(prior)} prior lines for {ref.M} isoforms")
+        alpha = {int(p): a for p, a in zip(part, prior)}
+        if sorted(alpha) != [0, 1] or not alpha[1] > alpha[0]:
+            fail(f"phase 15: partition alphas {alpha}: the peak partition "
+                 f"(1) must have the larger one")
+        for kind in ("isoforms", "genes"):
+            if not os.path.exists(
+                    f"out.stat/out_uniform_prior_1.{kind}.results"):
+                fail(f"phase 15: the uniform-prior {kind} table was not "
+                     f"moved to out.stat/")
+        ih, irows = _rows("out.isoforms.results")
+        pme_sum = float(_col(ih, irows, "posterior_mean_count").sum())
+        if abs(pme_sum - n_mapped) > 0.02 * n_mapped:
+            fail(f"phase 15: posterior_mean_count sums to {pme_sum}, the "
+                 f"aligned reads {n_mapped}")
+        gh, grows = _rows("out.genes.results")
+        true_g = {}
+        for sid, t in enumerate(ts.transcripts, 1):
+            true_g[t.gene_id] = true_g.get(t.gene_id, 0.0) + truth[sid]
+        g_err = max(abs(float(r[gh.index("expected_count")]) - true_g[r[0]])
+                    for r in grows)
+        if g_err > 1e-2:
+            fail(f"phase 15: gene expected counts off the truth by {g_err}")
+        pme_prior = np.array([float(r[ih.index("posterior_mean_count")])
+                              for r in irows])
+        uh, urows = _rows("out.stat/out_uniform_prior_1.isoforms.results")
+        pme_uniform = _col(uh, urows, "posterior_mean_count")
+
+        # the kernels on this run's own inputs, both Gibbs runs
+        t4 = time.perf_counter()
+        dev = torch.device(device)
+        holds = {"em": hold_path_em("phase 15", got["run_em"][0], dev, k3)}
+        for i, call in enumerate(got["run_gibbs"]):
+            which = ("uniform prior", "pRSEM prior")[i]
+            holds[f"gibbs, {which}"] = hold_path_gibbs(
+                f"phase 15, Gibbs with the {which}", call, dev)
+        pme_c0 = got["run_gibbs"][0][2].pme_c[1:]
+        del got
+        t5 = time.perf_counter()
+
+        # 15b: the ChIP-seq leg on tagAlign replicates, peaks called natively
+        reps = _chip_replicates(ts, planted, n_tags, chrom_len, seed=16)
+        t6 = time.perf_counter()
+        os.makedirs("chip", exist_ok=True)
+        chip_log = []
+        pres = learn_prior(
+            ts, pme_c0, PrsemConfig(partition_model="pk",
+                                    chipseq_target_read_files=reps,
+                                    temp_dir="chip"),
+            imd_name="chip/out", ref=ref, log=chip_log.append)
+        t7 = time.perf_counter()
+        called = read_peaks("chip/idr_target_vs_control.regionPeak.gz")
+        hit = 0
+        for c, tss in planted:
+            pk = called.get(c)
+            if pk is None:
+                continue
+            k = int(np.searchsorted(pk[:, 1], tss - 80, side="left"))
+            hit += int(k < len(pk) and pk[k, 0] <= tss + 80)
+        called_bp = int(sum((v[:, 1] - v[:, 0] + 1).sum()
+                            for v in called.values()))
+        planted_bp = len(planted) * (160 + 2 * CHIP_FRAGLEN)
+        if hit < 0.95 * len(planted):
+            fail(f"phase 15b: called peaks overlap {hit} of {len(planted)} "
+                 f"planted TSS peaks")
+        if not called_bp < 4 * planted_bp:
+            fail(f"phase 15b: called peaks cover {called_bp} bp, 4 x the "
+                 f"planted {planted_bp} bp or more")
+        if not pres.informative:
+            fail(f"phase 15b: the prior from called peaks is not "
+                 f"informative (p-value {pres.pvalue})")
+    finally:
+        os.chdir(cwd)
+    out = {"genes": len(gene_ids), "one_isoform_genes": n_single,
+           "transcripts": ref.M, "peak_genes": len(pk_genes),
+           "reads": n_reads, "aligned_reads": n_mapped,
+           "sibling_alignments": sib.n_siblings, "training_set": n_train,
+           "pvalue": pval, "loglikelihood": logl,
+           "alpha": [alpha[0], alpha[1]], "stages_s": stages,
+           "k5_launches_per_gibbs_run": k5_runs,
+           "pme_sum": pme_sum, "gene_count_err": g_err,
+           "pme_change_max": float(np.abs(pme_prior - pme_uniform).max()),
+           "reference_s": t1 - t0, "reads_s": t2 - t1,
+           "calculate_expression_s": t3 - t2, "checks_s": t4 - t3,
+           "path_kernels_max_abs_err": holds, "path_holds_s": t5 - t4,
+           "chip": {"tags_per_replicate": n_tags,
+                    "log": chip_log,
+                    "planted_peaks": len(planted), "planted_hit": hit,
+                    "called_bp": called_bp, "planted_bp": planted_bp,
+                    "pvalue": pres.pvalue, "alpha": pres.alpha.tolist(),
+                    "write_s": t6 - t5, "learn_prior_s": t7 - t6},
+           "phase_s": time.perf_counter() - t0,
+           "card": _card() if device != "cpu" else "cpu"}
+    log(f"prsem: {ref.M} transcripts of {len(gene_ids)} genes ({n_single} "
+        f"of one isoform), {len(pk_genes)} with a TSS peak; {n_reads} reads "
+        f"({sib.n_siblings} sibling alignments); training set {n_train}, "
+        f"p-value {pval:.4g}, alphas {alpha[0]:.4g} / {alpha[1]:.4g}; "
+        f"calculate-expression {t3 - t2:.2f} s, stages "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; K5 launches per Gibbs run {k5_runs}, all {launches}; K1-K5 on "
+        f"this run's inputs equal their plain versions, both Gibbs runs "
+        f"({t5 - t4:.2f} s); 15b: {n_tags} tags per replicate, "
+        f"{hit}/{len(planted)} planted peaks called, {called_bp} bp called "
+        f"against {planted_bp} planted, p-value {pres.pvalue:.4g} "
+        f"({t7 - t6:.2f} s); phase {out['phase_s']:.1f} s; "
+        f"card {out['card']}")
+    return launches, k5_runs, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2516,6 +2805,14 @@ def main(argv=None) -> int:
     for k, n in bam_launches.items():
         if n <= 0 and k not in OFF_EM_PATH:
             fail(f"kernel {k} was not launched on the genome-BAM run")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        prsem_launches, prsem_k5, prsem = phase_prsem(d, k3=k3)
+    for k, n in prsem_launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the pRSEM run")
+    if min(prsem_k5) <= 0:
+        fail(f"K5 launches per pRSEM Gibbs run: {prsem_k5}")
     for r in rows:
         # EM kernels: launches of the main path; K5: of the posterior path
         r["launches"] = launches.get(r["name"], post_launches[r["name"]])
@@ -2524,6 +2821,9 @@ def main(argv=None) -> int:
         r["large_run_launches"] = large_launches[r["name"]]
         r["allele_launches"] = allele_launches[r["name"]]
         r["bam_options_launches"] = bam_launches[r["name"]]
+        r["prsem_launches"] = prsem_launches[r["name"]]
+        if r["name"] == "sweep_part":  # uniform prior, then pRSEM's
+            r["prsem_gibbs_launches"] = prsem_k5
         r["kernel_ms"] = r["ms"]
     log(json.dumps({"run_em": {"cold_s": cold, "warm_s": warm,
                                "rounds": rounds},
@@ -2531,7 +2831,7 @@ def main(argv=None) -> int:
                     "windowed": windowed, "posterior_s": post_secs,
                     "large_run": large, "ingest": ingest,
                     "simulate": simulate, "allele": allele,
-                    "bam_options": bam_options}))
+                    "bam_options": bam_options, "prsem": prsem}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,11 @@ isoform tables for an allele-specific reference) -> transcript BAM, its
 genome-coordinate conversion and coordinate-sorted, indexed copies.
 Interop artifacts (.cnt/.model/.theta/.mparams; .ofg and .countvectors
 with --keep-intermediate-files) are written under sample_name.stat/ and
-sample_name.temp/ as the reference does.
+sample_name.temp/ as the reference does. With --run-pRSEM the uniform-prior
+posterior feeds pRSEM's prior fit on the host (prsem/), and a second Gibbs
+run on the device with the learned pseudo-counts gives the final PME columns.
 
-Not ported yet: pRSEM (--run-pRSEM raises NotImplementedError naming its
-ROADMAP item), and the multi-device mesh of the posterior stages.
+Not ported yet: the multi-device mesh of the posterior stages.
 """
 
 from __future__ import annotations
@@ -59,8 +60,7 @@ from .aligners import AlignerConfig, run_alignment
 
 @dataclass
 class ExpressionConfig:
-    """The reference CLI surface (rsem-calculate-expression:129-205) but
-    pRSEM's, whose switch alone is here (it raises)."""
+    """The reference CLI surface (rsem-calculate-expression:129-205)."""
 
     paired_end: bool = False
     no_qualities: bool = False
@@ -84,8 +84,20 @@ class ExpressionConfig:
     ci_credibility_level: float = 0.95
     ci_number_of_samples_per_count_vector: int = 50
     single_cell_prior: bool = False
-    # not ported yet (raises)
+    # pRSEM (rsem-calculate-expression:115-126,182-194,743-811)
     run_prsem: bool = False
+    chipseq_peak_file: str = ""
+    partition_model: str = "pk"
+    mappability_bedgraph_file: Optional[str] = None
+    chipseq_target_read_files: str = ""  # colon-separated replicates
+    chipseq_control_read_files: str = ""
+    chipseq_read_files_multi_targets: str = ""
+    chipseq_bed_files_multi_targets: str = ""
+    cap_stacked_chipseq_reads: bool = False
+    n_max_stacked_chipseq_reads: int = 5
+    chipseq_target_signals: str = ""  # pooled tagAlign for signal models
+    chipseq_bowtie_index: str = ""  # genome bowtie index (default: ref name)
+    chipseq_bowtie_path: str = ""
     # BAM output (rsem-calculate-expression:94-99,505-527,645-674)
     no_bam_output: bool = False
     sampling_for_bam: bool = False
@@ -135,6 +147,78 @@ def _pct(num: np.ndarray, denom: np.ndarray) -> np.ndarray:
     return out
 
 
+def _check_prsem(cfg: ExpressionConfig, allele: bool, posterior: bool):
+    """The JAX driver's pRSEM refusals, made before any work is done."""
+    if allele:
+        raise ValueError("pRSEM is not supported in allele mode")
+    if not posterior:
+        raise ValueError(
+            "--run-pRSEM requires --calc-pme (pRSEM learns its prior "
+            "from posterior mean counts)"
+        )
+    if not (cfg.chipseq_peak_file or cfg.chipseq_target_read_files
+            or cfg.chipseq_read_files_multi_targets
+            or cfg.chipseq_bed_files_multi_targets):
+        raise ValueError(
+            "--run-pRSEM requires --chipseq-peak-file, "
+            "--chipseq-target-read-files (+ --chipseq-control-read-"
+            "files), or --chipseq-{read,bed}-files-multi-targets"
+        )
+
+
+def _learn_prior(cfg: ExpressionConfig, ts, ref, em, gres,
+                 reference_name: str, imd: str, stat: str):
+    """pRSEM's prior from the uniform-prior posterior mean counts (host)."""
+    from ..prsem import PrsemConfig, learn_prior
+
+    def _split(s):
+        return [x for x in s.split(":") if x] if s else []
+
+    return learn_prior(
+        ts,
+        gres.pme_c[1:],
+        PrsemConfig(
+            chipseq_peak_file=cfg.chipseq_peak_file,
+            partition_model=cfg.partition_model,
+            mappability_file=cfg.mappability_bedgraph_file,
+            chipseq_target_read_files=_split(cfg.chipseq_target_read_files),
+            chipseq_control_read_files=_split(
+                cfg.chipseq_control_read_files),
+            chipseq_read_files_multi_targets=_split(
+                cfg.chipseq_read_files_multi_targets),
+            chipseq_bed_files_multi_targets=_split(
+                cfg.chipseq_bed_files_multi_targets),
+            cap_stacked_chipseq_reads=cfg.cap_stacked_chipseq_reads,
+            n_max_stacked_chipseq_reads=cfg.n_max_stacked_chipseq_reads,
+            chipseq_target_signals=cfg.chipseq_target_signals,
+            bowtie_index=cfg.chipseq_bowtie_index or reference_name,
+            bowtie_path=cfg.chipseq_bowtie_path,
+            temp_dir=os.path.dirname(imd) or ".",
+        ),
+        imd_name=imd,
+        stat_name=stat,
+        ref=ref,
+        efflen=em.eel[1:],
+        pme_tpm=gres.pme_tpm[1:],
+        log=(lambda *a: None) if cfg.quiet else print,
+    )
+
+
+def _pme_columns(gres, gi, sid2g: np.ndarray):
+    """The PME columns of an isoform table (not allele-specific) and of the
+    gene table, and the genes' PME TPM."""
+    g_tpm = np.bincount(sid2g, weights=gres.pme_tpm[1:], minlength=gi.m)
+    g_c = np.bincount(sid2g, weights=gres.pme_c[1:], minlength=gi.m)
+    g_fpkm = np.bincount(sid2g, weights=gres.pme_fpkm[1:], minlength=gi.m)
+    isopct = _pct(gres.pme_tpm[1:], g_tpm[sid2g])
+    iso = (ISO_TITLE_PME, np.stack(
+        [gres.pme_c, np.sqrt(gres.pve_c), gres.pme_tpm, gres.pme_fpkm,
+         np.concatenate([[0.0], isopct])]))
+    gene = (GENE_TITLE_PME, np.stack(
+        [g_c, np.sqrt(gres.pve_c_genes), g_tpm, g_fpkm]))
+    return iso, gene, g_tpm
+
+
 def calculate_expression(
     alignments: str,
     reference_name: str,
@@ -147,10 +231,6 @@ def calculate_expression(
     device="cpu" is given."""
     cfg = cfg or ExpressionConfig()
     dev = resolve_device(device)
-    if cfg.run_prsem:
-        raise NotImplementedError(
-            "--run-pRSEM is not ported to rsem_tpu_torch yet (ROADMAP: "
-            "pRSEM on the ported Gibbs sampler)")
     t_start = time.time()
     from ..utils.timing import StageTimer, maybe_profile
 
@@ -164,13 +244,19 @@ def calculate_expression(
     stat = os.path.join(stat_dir, sample_token)
 
     # ---- reference ----
-    ref = Reference.load_seq(f"{reference_name}.seq")
-    ts = Transcripts.read_ti(f"{reference_name}.ti")
-    gi = GroupInfo.load(f"{reference_name}.grp")
-    allele = os.path.exists(f"{reference_name}.gt") and os.path.exists(
-        f"{reference_name}.ta")
-    ta = GroupInfo.load(f"{reference_name}.ta") if allele else None
-    gt = GroupInfo.load(f"{reference_name}.gt") if allele else None
+    # (the stages the JAX driver does not time stay out of the .time
+    # file's headline: load-reference, intermediate-files, tables, pRSEM's)
+    with timer.stage("load-reference", headline=False):
+        ref = Reference.load_seq(f"{reference_name}.seq")
+        ts = Transcripts.read_ti(f"{reference_name}.ti")
+        gi = GroupInfo.load(f"{reference_name}.grp")
+        allele = os.path.exists(f"{reference_name}.gt") and os.path.exists(
+            f"{reference_name}.ta")
+        ta = GroupInfo.load(f"{reference_name}.ta") if allele else None
+        gt = GroupInfo.load(f"{reference_name}.gt") if allele else None
+    posterior = cfg.calc_pme or cfg.calc_ci
+    if cfg.run_prsem:
+        _check_prsem(cfg, allele, posterior)
     names = [""] + [
         (t.seqname if ts.is_allele_specific else t.transcript_id)
         for t in ts.transcripts
@@ -215,7 +301,6 @@ def calculate_expression(
         raise RuntimeError("No alignable reads; nothing to estimate.")
 
     # ---- EM ----
-    posterior = cfg.calc_pme or cfg.calc_ci
     need_posteriors = ((not cfg.no_bam_output) or cfg.keep_intermediate_files
                        or posterior)
     with timer.stage("em"), maybe_profile(cfg.profile_dir):
@@ -231,8 +316,9 @@ def calculate_expression(
         # probabilities, consumable by rsem-run-gibbs
         from ..io.ofg import write_ofg
 
-        write_ofg(f"{imd}.ofg", ref.M, bundle.cnt.N0, bundle.hits,
-                  em.log_conprb, em.log_ncp)
+        with timer.stage("intermediate-files", headline=False):
+            write_ofg(f"{imd}.ofg", ref.M, bundle.cnt.N0, bundle.hits,
+                      em.log_conprb, em.log_ncp)
 
     tlens = ts.lengths()
     gl = gene_level_values(gi, tlens, em.eel, em.counts, em.tpm, em.fpkm)
@@ -266,24 +352,16 @@ def calculate_expression(
 
             # Gibbs.cpp:255-262 (one file; the reference writes one per
             # thread and calcCI globs them)
-            write_countvectors(f"{imd}.countvectors",
-                               gres.countvectors.cpu().numpy())
-        gene_pme_c = np.bincount(sid2g, weights=gres.pme_c[1:],
-                                 minlength=gi.m)
-        gene_pme_tpm = np.bincount(sid2g, weights=gres.pme_tpm[1:],
-                                   minlength=gi.m)
-        gene_pme_fpkm = np.bincount(sid2g, weights=gres.pme_fpkm[1:],
-                                    minlength=gi.m)
-        gene_extra.append((GENE_TITLE_PME, np.stack(
-            [gene_pme_c, np.sqrt(gres.pve_c_genes), gene_pme_tpm,
-             gene_pme_fpkm])))
-        sid_pme = [gres.pme_c, np.sqrt(gres.pve_c), gres.pme_tpm,
-                   gres.pme_fpkm]
+            with timer.stage("intermediate-files", headline=False):
+                write_countvectors(f"{imd}.countvectors",
+                                   gres.countvectors.cpu().numpy())
+        iso_pme, gene_pme, gene_pme_tpm = _pme_columns(gres, gi, sid2g)
+        gene_extra.append(gene_pme)
         if not allele:
-            isopct_pme = _pct(gres.pme_tpm[1:], gene_pme_tpm[sid2g])
-            iso_extra.append((ISO_TITLE_PME, np.stack(
-                sid_pme + [np.concatenate([[0.0], isopct_pme])])))
+            iso_extra.append(iso_pme)
         else:
+            sid_pme = [gres.pme_c, np.sqrt(gres.pve_c), gres.pme_tpm,
+                       gres.pme_fpkm]
             sid2tid = ta.gids_of(np.arange(1, ref.M + 1))
             trans_pme_c = np.bincount(sid2tid, weights=gres.pme_c[1:],
                                       minlength=ta.m)
@@ -327,25 +405,57 @@ def calculate_expression(
         gene_extra.append(ci_cols(cires.gene_tpm, cires.gene_fpkm))
 
     # ---- final tables ----
-    if allele:
-        write_allele_results(
-            f"{sample_name}.alleles.results", ts, tlens, em.eel, em.counts,
-            em.tpm, em.fpkm, tl.isopct, gl.isopct, cfg.append_names,
-            allele_extra,
+    with timer.stage("tables", headline=False):
+        if allele:
+            write_allele_results(
+                f"{sample_name}.alleles.results", ts, tlens, em.eel,
+                em.counts, em.tpm, em.fpkm, tl.isopct, gl.isopct,
+                cfg.append_names, allele_extra,
+            )
+            write_transcript_results_allele(
+                f"{sample_name}.isoforms.results", ts, ta, gt, tl,
+                within_gene_pct(gt, tl.tpm, gl.tpm), cfg.append_names,
+                iso_extra,
+            )
+        else:
+            write_isoform_results(
+                f"{sample_name}.isoforms.results", ts, tlens, em.eel,
+                em.counts, em.tpm, em.fpkm, gl.isopct, cfg.append_names,
+                iso_extra,
+            )
+        write_gene_results(
+            f"{sample_name}.genes.results", ts, gi, gl, cfg.append_names,
+            gene_extra,
         )
-        write_transcript_results_allele(
-            f"{sample_name}.isoforms.results", ts, ta, gt, tl,
-            within_gene_pct(gt, tl.tpm, gl.tpm), cfg.append_names, iso_extra,
-        )
-    else:
-        write_isoform_results(
-            f"{sample_name}.isoforms.results", ts, tlens, em.eel, em.counts,
-            em.tpm, em.fpkm, gl.isopct, cfg.append_names, iso_extra,
-        )
-    write_gene_results(
-        f"{sample_name}.genes.results", ts, gi, gl, cfg.append_names,
-        gene_extra,
-    )
+
+    # ---- pRSEM: ChIP-seq-informed prior + Gibbs rerun on the device ----
+    # (rsem-calculate-expression:743-811; pRSEM/prsem-calculate-expression)
+    if cfg.run_prsem:
+        with timer.stage("prsem-prior", headline=False):
+            pres = _learn_prior(cfg, ts, ref, em, gres, reference_name, imd,
+                                stat)
+        if pres.informative:
+            # the uniform-prior tables become the *_uniform_prior_1 artifacts
+            for kind in ("isoforms", "genes"):
+                os.replace(f"{sample_name}.{kind}.results",
+                           f"{stat}_uniform_prior_1.{kind}.results")
+            with timer.stage("gibbs-prior", headline=False):
+                gres = run_gibbs(
+                    bundle.hits, em.log_conprb, em.log_ncp, ref.M,
+                    bundle.cnt.N0, em.eel, model.mw, gi, gcfg,
+                    omit=bundle.omit, prior=pres.prior, device=dev)
+            # pRSEM's results: the EM columns and the prior-informed PME
+            # columns only (collectResults over head-8/tail-5 of iso_res,
+            # rsem-calculate-expression:789-796)
+            iso_pme, gene_pme, _ = _pme_columns(gres, gi, sid2g)
+            with timer.stage("tables", headline=False):
+                write_isoform_results(
+                    f"{sample_name}.isoforms.results", ts, tlens, em.eel,
+                    em.counts, em.tpm, em.fpkm, gl.isopct, cfg.append_names,
+                    [iso_pme])
+                write_gene_results(
+                    f"{sample_name}.genes.results", ts, gi, gl,
+                    cfg.append_names, [gene_pme])
 
     # ---- posterior-weighted BAM output (rsem-calculate-expression:645-674);
     # the stages split what the JAX driver's .time calls bam-output
@@ -457,6 +567,22 @@ def build_parser() -> argparse.ArgumentParser:
                    default=50)
     p.add_argument("--single-cell-prior", action="store_true")
     p.add_argument("--run-pRSEM", dest="run_prsem", action="store_true")
+    p.add_argument("--chipseq-peak-file", default="")
+    p.add_argument("--partition-model", default="pk")
+    p.add_argument("--mappability-bedgraph-file", default=None)
+    # ChIP-seq leg: colon-separated replicates, commas within a replicate
+    # (rsem-calculate-expression:116-126,183-192)
+    p.add_argument("--chipseq-target-read-files", default="")
+    p.add_argument("--chipseq-control-read-files", default="")
+    p.add_argument("--chipseq-read-files-multi-targets", default="")
+    p.add_argument("--chipseq-bed-files-multi-targets", default="")
+    p.add_argument("--cap-stacked-chipseq-reads", action="store_true")
+    p.add_argument("--n-max-stacked-chipseq-reads", type=int, default=5)
+    p.add_argument("--chipseq-target-signals", default="",
+                   help="pooled target tagAlign(.gz) for signal-based "
+                   "partition models when supplying --chipseq-peak-file")
+    p.add_argument("--chipseq-bowtie-index", default="")
+    p.add_argument("--chipseq-bowtie-path", default="")
     p.add_argument("--no-bam-output", action="store_true")
     p.add_argument("--sampling-for-bam", action="store_true")
     p.add_argument("--output-genome-bam", action="store_true")
@@ -572,6 +698,18 @@ def main(argv=None) -> int:
             args.ci_number_of_samples_per_count_vector),
         single_cell_prior=args.single_cell_prior,
         run_prsem=args.run_prsem,
+        chipseq_peak_file=args.chipseq_peak_file,
+        partition_model=args.partition_model,
+        mappability_bedgraph_file=args.mappability_bedgraph_file,
+        chipseq_target_read_files=args.chipseq_target_read_files,
+        chipseq_control_read_files=args.chipseq_control_read_files,
+        chipseq_read_files_multi_targets=args.chipseq_read_files_multi_targets,
+        chipseq_bed_files_multi_targets=args.chipseq_bed_files_multi_targets,
+        cap_stacked_chipseq_reads=args.cap_stacked_chipseq_reads,
+        n_max_stacked_chipseq_reads=args.n_max_stacked_chipseq_reads,
+        chipseq_target_signals=args.chipseq_target_signals,
+        chipseq_bowtie_index=args.chipseq_bowtie_index,
+        chipseq_bowtie_path=args.chipseq_bowtie_path,
         output_genome_bam=args.output_genome_bam,
         sort_bam_by_coordinate=args.sort_bam_by_coordinate,
         sort_bam_by_read_name=args.sort_bam_by_read_name,

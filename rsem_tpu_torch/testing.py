@@ -609,14 +609,19 @@ def synthetic_allele_reference(d: str, n_genes: int, seed: int,
 
 
 def synthetic_genome(d: str, seed: int, n_chrom: int = 4,
-                     chrom_len: int = 1_000_000, n_genes: int = 1000) -> None:
+                     chrom_len: int = 1_000_000, n_genes: int = 1000,
+                     n_single: int = 0) -> None:
     """Write `d`/genome.fa (n_chrom chromosomes of random bases) and
     `d`/anno.gtf: n_genes genes spread evenly over the chromosomes, on
     either strand, each with two isoforms that share exons. Isoform 1 has
     2-6 exons of 150-400 bp with introns of 80-300 bp; isoform 2 skips one
     inner exon where there are three or more, else ends its last exon
-    early."""
+    early. n_single of the genes, spread evenly, have isoform 1 alone,
+    spanning at least pRSEM's TRAINING_GENE_MIN_LEN bp, so that they can
+    enter its training set."""
     import os
+
+    from .prsem.training import TRAINING_GENE_MIN_LEN
 
     rng = np.random.default_rng(seed)
     per_chrom = -(-n_genes // n_chrom)
@@ -633,9 +638,13 @@ def synthetic_genome(d: str, seed: int, n_chrom: int = 4,
     for g in range(n_genes):
         chrom, k = f"chr{g // per_chrom + 1}", g % per_chrom
         strand = "+" if rng.random() < 0.5 else "-"
-        n_ex = int(rng.integers(2, 7))
-        lens = rng.integers(150, 401, n_ex)
-        gaps = rng.integers(80, 301, n_ex - 1)
+        single = (g * n_single) // n_genes != ((g + 1) * n_single) // n_genes
+        while True:
+            n_ex = int(rng.integers(2, 7))
+            lens = rng.integers(150, 401, n_ex)
+            gaps = rng.integers(80, 301, n_ex - 1)
+            if not single or lens.sum() + gaps.sum() >= TRAINING_GENE_MIN_LEN:
+                break
         starts = k * slot + 101 + np.concatenate(
             [[0], np.cumsum(lens[:-1] + gaps)])
         ex1 = [(int(a), int(a + n - 1)) for a, n in zip(starts, lens)]
@@ -645,7 +654,7 @@ def synthetic_genome(d: str, seed: int, n_chrom: int = 4,
         else:
             ex2 = ex1[:-1] + [(ex1[-1][0], ex1[-1][1] - 60)]
         gid = f"gene{g:04d}"
-        for t, exons in enumerate((ex1, ex2)):
+        for t, exons in enumerate((ex1,) if single else (ex1, ex2)):
             for a, b in exons:
                 lines.append(f'{chrom}\tsyn\texon\t{a}\t{b}\t.\t{strand}\t.\t'
                              f'gene_id "{gid}"; transcript_id "{gid}.{t}";\n')

@@ -14,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 
 @dataclass
@@ -24,9 +24,15 @@ class StageTimer:
     stages: List[Tuple[str, float]] = field(default_factory=list)
     t0: float = field(default_factory=time.time)
     _open: Dict[str, float] = field(default_factory=dict)
+    _comment_only: Set[str] = field(default_factory=set)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, headline: bool = True):
+        """Times the block as stage `name`. A stage with headline=False is
+        only a comment line of the .time file: it stays out of the
+        reference's `Estimating expression levels` sum."""
+        if not headline:
+            self._comment_only.add(name)
         t = time.perf_counter()
         try:
             yield
@@ -59,7 +65,8 @@ class StageTimer:
         (rsem-calculate-expression:820-828), with the per-stage breakdown
         appended as comments."""
         ci = self.get("ci")
-        est = sum(dt for n, dt in self.stages if n != "ci") or self.total()
+        est = sum(dt for n, dt in self.stages
+                  if n != "ci" and n not in self._comment_only) or self.total()
         with open(path, "w") as f:
             f.write(f"Aligning reads: {aligning:.0f} s.\n")
             f.write(f"Estimating expression levels: {est:.2f} s.\n")

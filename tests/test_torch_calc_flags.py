@@ -118,18 +118,22 @@ def test_missing_aligner_binary_errors(tmp_path, monkeypatch):
 
 
 def test_jax_flags_accepted_but_prsem():
-    """Every option of the JAX driver's parser but pRSEM's."""
+    """Every option of the JAX driver's parser, pRSEM's included, with the
+    same defaults; the port's parser adds --device alone."""
     from rsem_tpu.pipeline.calculate_expression import (
         build_parser as jax_parser,
     )
 
-    opts = lambda p: {o for a in p._actions for o in a.option_strings}  # noqa
-    missing = opts(jax_parser()) - opts(build_parser())
-    assert missing and all(
-        "chipseq" in o or o in ("--partition-model",
-                                "--mappability-bedgraph-file")
-        for o in missing), missing
-    assert "--run-pRSEM" in opts(build_parser())
+    def opts(p):
+        return {o: a.default for a in p._actions for o in a.option_strings}
+
+    jax_opts, port_opts = opts(jax_parser()), opts(build_parser())
+    missing = set(jax_opts) - set(port_opts)
+    assert not missing, missing
+    assert set(port_opts) - set(jax_opts) == {"--device"}
+    for o in ("--run-pRSEM", "--chipseq-peak-file", "--partition-model",
+              "--chipseq-target-read-files", "--chipseq-bowtie-index"):
+        assert port_opts[o] == jax_opts[o], o
 
 
 def _stub_aligner(d, sam):

@@ -55,7 +55,13 @@ def test_port_imports_with_jax_blocked():
             "rsem_tpu_torch.refprep.gff3",
             "rsem_tpu_torch.refprep.extract",
             "rsem_tpu_torch.refprep.synthesis",
-            "rsem_tpu_torch.refprep.prepare"} <= set(_port_modules())
+            "rsem_tpu_torch.refprep.prepare",
+            "rsem_tpu_torch.prsem.runner",
+            "rsem_tpu_torch.prsem.chipseq",
+            "rsem_tpu_torch.pipeline.utilities",
+            "rsem_tpu_torch.diffexp.ebseq",
+            "rsem_tpu_torch.plots.plot_model",
+            "rsem_tpu_torch.plots.transcript_wiggles"} <= set(_port_modules())
 
 
 def test_native_ingest_imports_with_jax_blocked():
@@ -171,19 +177,38 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
         main(["calculate-expression", "--alignments", "x.sam", "ref", "out"])
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """pRSEM's three refusals raise the JAX driver's ValueErrors (allele
+    mode; no --calc-pme; no ChIP-seq input), before any alignment is read;
+    an unknown EM backend raises."""
+    from rsem_tpu_torch.__main__ import main
     from rsem_tpu_torch.engine.em import EMConfig, run_em
     from rsem_tpu_torch.pipeline.calculate_expression import (
         ExpressionConfig,
         calculate_expression,
     )
 
-    for flag in ("run_prsem",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            calculate_expression("x.sam", str(tmp_path / "ref"),
-                                 str(tmp_path / "o"),
-                                 ExpressionConfig(**{flag: True}),
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(0)
+    seqs = ["".join(rng.choice(list("ACGT"), size=300)) for _ in range(3)]
+    (tmp_path / "tx.fa").write_text("".join(
+        f">t{i}\n{q}\n" for i, q in enumerate(seqs)))
+    (tmp_path / "alleles.fa").write_text("".join(
+        f">a{i}\n{q}\n" for i, q in enumerate(seqs)))
+    (tmp_path / "amap.txt").write_text("gA tX a0\ngA tX a1\ngB tY a2\n")
+    assert main(["prepare-reference", "tx.fa", "ref", "-q"]) == 0
+    assert main(["prepare-reference", "--allele-to-gene-map", "amap.txt",
+                 "alleles.fa", "aref", "-q"]) == 0
+    peaks = dict(chipseq_peak_file="peaks.bed")
+    for ref, kw, msg in (
+            ("aref", dict(calc_pme=True, **peaks), "allele mode"),
+            ("ref", dict(**peaks), "requires --calc-pme"),
+            ("ref", dict(calc_pme=True), "requires --chipseq-peak-file")):
+        with pytest.raises(ValueError, match=msg):
+            calculate_expression("missing.sam", ref, "o",
+                                 ExpressionConfig(run_prsem=True, **kw),
                                  device="cpu")
+    assert not os.path.exists("o.isoforms.results")
     ref, bundle, _spec, model = _tiny()
     with pytest.raises(ValueError, match="unknown EM backend"):
         run_em(model, ref, bundle, EMConfig(backend="xla"), device="cpu")
