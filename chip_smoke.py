@@ -185,6 +185,32 @@ non-zero on failure:
     their footprint (tests/test_chipseq_groundtruth.py:68-84); the prior
     is informative. Stage times, K5 launches per Gibbs run, the training
     set's size and the card's name and power limit are printed.
+16. the process group on the one card. 16a, world size 1 through NCCL in
+    this process (parallel.distributed.init_group), at full width and
+    the driver defaults: run_em, run_gibbs and run_ci with the group,
+    launch counts zeroed just before and read just after (K2-K5 and K1's
+    two halves, theta_partial and theta_finish, must launch; theta_round
+    is the one-process entry), against the same calls without it: counts
+    within rtol 1e-5, rounds within 2; Gibbs count vectors identical on
+    the same frozen conprbs, CI bounds identical on the same count
+    vectors. The fused loop and a theta-loop segment with the group run
+    under torch.cuda.set_sync_debug_mode("error") after a warm call. K1's
+    halves held against their plain versions (phase 3's tolerances) and
+    timed beside their bounds; the theta loop's ms per round with and
+    without the group in turns (ABBA twice, 500 rounds) and the bytes
+    summed per round. Then calculate-expression --calc-pme --calc-ci on
+    phase 15's reference and reads, as a subprocess with the RSEM_TPU_*
+    variables of one process, against the same run in this process
+    without them: .cnt identical, expected counts and TPM within rtol
+    1e-5, posterior means within max(2 sd, 1.5), CI bounds at
+    tests/test_torch_ci.py's golden tolerances. 16b, world size 2 on the
+    one card over gloo: `chip_smoke.py --rank16 DIR COORD RANK` twice,
+    each rank a gloo group member on cuda:0 (distributed.init_group)
+    running run_em, run_gibbs and run_ci on the full-width workload; rank 0 holds them against 16a's world-1
+    results at 16a's tolerances; each rank holds K1's halves on its reads
+    and K5 on its chains (chain0 0 and 4) against their plain versions,
+    and counts every kernel's launches. Two ranks share one card: their
+    stage times are a correctness run's, not a scaling measurement.
 
 K3 is held against its plain version (rtol 1e-5, atol 1e-6) and timed at
 every input above that reaches it (K3Shapes: phase 3's two shapes, the
@@ -198,7 +224,9 @@ the same inputs, in turns; the port never calls it.
 
 The line before `kernels` holds the stage numbers (phases 11-12 under
 `simulate`, 13 under `allele`, 14 under `bam_options`, 15 under
-`prsem`); the next-to-last
+`prsem`, 16 under `group`); each kernel row adds its launches with the
+group of one (`sharded_launches`; K1: its partial half's) and on each
+rank of the group of two (`sharded_world2_launches`); the next-to-last
 line is {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
 """
 
@@ -773,7 +801,8 @@ def phase_main_path(ref, bundle, model0, dev):
 
 def phase_profile(label, fn):
     """One warm call of `fn` under torch.profiler: device time by kernel
-    and the device's idle share of the call's wall time."""
+    and the device's idle share of the call's wall time. Returns
+    {kernel name: (launches, device us)} and the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -797,6 +826,7 @@ def phase_profile(label, fn):
         f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / 1e6 / wall:.3f}")
     for n, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"profile:   {t / 1e3:9.3f} ms  {c:5d}x  {n[:90]}")
+    return by_name, 1 - busy_us / 1e6 / wall
 
 
 def agree(got, want, rtol: float, atol: float, what: str) -> float:
@@ -1114,13 +1144,15 @@ def phase_posterior(ref, bundle, model0, dev):
 
 
 def k5_replay(layout, assigns, tab, seed: int, label: str,
-              sweeps: int = K5_SWEEPS):
+              sweeps: int = K5_SWEEPS, chain0: int = 0):
     """K5 against its plain version over `sweeps` sweeps from one chain
     state (copied for each), with the per-part seeds of Gibbs seed `seed`
     and one delta scratch for all sweeps: identical assignments and tables,
-    one launch per part and sweep. Returns (kernel sweeps, plain sweeps),
-    each a function of the sweep index that sweeps its own copy on, and
-    the read assignments moved and table entries changed per plain sweep."""
+    one launch per part and sweep; chain0 is the global index of the first
+    chain (a rank's chains of a split run). Returns (kernel sweeps, plain
+    sweeps), each a function of the sweep index that sweeps its own copy
+    on, and the read assignments moved and table entries changed per
+    plain sweep."""
     import torch
 
     from rsem_tpu_torch.ops import gibbs
@@ -1133,11 +1165,11 @@ def k5_replay(layout, assigns, tab, seed: int, label: str,
 
     def kern_sweep(s):
         for part, a, sp in zip(layout.parts, a_k, seeds):
-            gibbs.sweep_part(a, t_k, part, sp, s, scratch)
+            gibbs.sweep_part(a, t_k, part, sp, s, scratch, chain0)
 
     def plain_sweep(s):
         for part, a, sp in zip(layout.parts, a_p, seeds):
-            gibbs.sweep_part_plain(a, t_p, part, sp, s)
+            gibbs.sweep_part_plain(a, t_p, part, sp, s, chain0)
 
     n0 = gibbs.sweep_part.launches
     moved = changed = 0
@@ -2744,6 +2776,525 @@ def phase_prsem(d: str, device: str = "cuda", n_genes: int = PRSEM_GENES,
     return launches, k5_runs, out
 
 
+# ------------------------------------------------------------------ #
+# phase 16: the process group on the one card                        #
+# ------------------------------------------------------------------ #
+GROUP_TIMEOUT_S = 600  # a rank's time limit in 16b (and its collectives')
+SPLIT_K1 = ("theta_partial", "theta_finish")
+
+
+def _free_port() -> int:
+    """A free port below Linux's ephemeral range (32768 up): a rank's store
+    client retries its connect until rank 0 listens, and on an ephemeral
+    port one of those connects can draw the port itself as its source and
+    connect to itself."""
+    import random
+    import socket
+
+    rng = random.Random(os.getpid() ^ time.time_ns())
+    for _ in range(100):
+        port = rng.randrange(20000, 32000)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    fail("no free port in 20000..32000")
+
+
+def group_wrappers():
+    """kernel_wrappers() and K1's two halves, which the read-sharded theta
+    rounds launch in place of theta_round."""
+    from rsem_tpu_torch.ops import theta
+
+    w = kernel_wrappers()
+    w.update(theta_partial=theta.theta_partial,
+             theta_finish=theta.theta_finish)
+    return w
+
+
+def _path_launches(label, wrappers, launches):
+    """Every kernel of the sharded path launched: K2-K5 and K1's halves
+    (theta_round, K1 whole, is the one-process entry)."""
+    for k, n in launches.items():
+        if n <= 0 and k != "theta_round":
+            fail(f"{label}: kernel {k} was not launched")
+
+
+def _bounds_equal(a, b, what):
+    import numpy as np
+
+    for lvl in ("tpm", "fpkm", "gene_tpm", "gene_fpkm"):
+        for f in ("lb", "ub", "cqv"):
+            x, y = getattr(getattr(a, lvl), f), getattr(getattr(b, lvl), f)
+            if not np.array_equal(x, y):
+                fail(f"{what}: CI {lvl}.{f} differs in "
+                     f"{int((x != y).sum())} entries")
+
+
+def hold_split_k1(data, th, dist, label):
+    """K1's partial and finish against their plain versions on `data`
+    (this rank's reads), the partial sums summed over `dist` on both
+    sides: the partial sums, theta and counts within rtol 1e-5, the stop
+    count within 2 (phase 3's tolerances). Returns the max abs error."""
+    from rsem_tpu_torch.ops import theta
+    from rsem_tpu_torch.parallel.distributed import all_reduce_
+
+    state = theta.round_state(data, 1, th.device)
+    state.ring[0] = th
+    theta.theta_partial(state, data, 0)
+    red_p = theta.theta_partial_plain(th, data)
+    err = close(state.reduced, red_p, 1e-5, 1e-9, f"{label}: K1 partial")
+    all_reduce_(state.reduced, dist)
+    all_reduce_(red_p, dist)
+    theta.theta_finish(state, data, 0)
+    t_p, c_p, n_p = theta.theta_finish_plain(th, red_p, data.n0)
+    err = max(err, close(state.ring[1], t_p, 1e-5, 1e-9,
+                         f"{label}: K1 finish theta"),
+              close(state.counts, c_p, 1e-5, 1e-6,
+                    f"{label}: K1 finish counts"))
+    if abs(int(state.tot[0]) - int(n_p)) > 2:
+        fail(f"{label}: K1 finish stop count {int(state.tot[0])}, plain "
+             f"{int(n_p)}")
+    return err
+
+
+def phase_group(ref, bundle, model0, dev, mem_rate, op_rate, d):
+    """16a: world size 1 through NCCL, in process, on the full-width
+    workload at the driver defaults: run_em, run_gibbs and run_ci with the
+    group (launches counted), against the same calls without it; the fused
+    loop and a theta-loop segment with the group under sync debug 'error';
+    K1's halves held and timed; the theta loop's ms per round with and
+    without the group, in turns. Saves what 16b compares with into `d`.
+    Returns (launches, summary, the K1 split's figures)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.convert import model_arrays_to_torch
+    from rsem_tpu_torch.engine import em as em_mod
+    from rsem_tpu_torch.engine.ci import CIConfig, run_ci
+    from rsem_tpu_torch.engine.em import EMConfig, run_em
+    from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
+    from rsem_tpu_torch.ops import conprb, model_loop, theta
+    from rsem_tpu_torch.parallel import distributed, fast_sharded
+
+    t_start = time.perf_counter()
+    d1 = distributed.init_group("cuda", f"tcp://127.0.0.1:{_free_port()}",
+                                1, 0)
+    if d1.backend != "nccl":
+        fail(f"16a: the group's backend is {d1.backend}, not nccl")
+    M, cnt, hits = ref.M, bundle.cnt, bundle.hits
+    gi = gene_groups(M)
+    gcfg = GibbsConfig(seed=1)  # burn-in 200, 1000 samples, 8 chains
+    cicfg = CIConfig(seed=2)
+    wrappers = group_wrappers()
+
+    # the path with the group, launches counted
+    secs = {}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    em_g = run_em(copy.deepcopy(model0), ref, bundle, EMConfig(),
+                  need_posteriors=True, device=dev, dist=d1)
+    t1 = time.perf_counter()
+    g_g = run_gibbs(hits, em_g.log_conprb, em_g.log_ncp, M, cnt.N0,
+                    em_g.eel, em_g.model.mw, gi, gcfg, omit=bundle.omit,
+                    device=dev, dist=d1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    run_ci(g_g.countvectors, em_g.eel, em_g.model.mw, gi, cicfg, device=dev,
+           dist=d1)
+    torch.cuda.synchronize()
+    secs["group"] = {"em": t1 - t0, "gibbs": t2 - t1,
+                     "ci": time.perf_counter() - t2}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    _path_launches("16a, world 1 through NCCL", wrappers, launches)
+    if launches["theta_partial"] != launches["theta_finish"]:
+        fail(f"16a: K1 partial launched {launches['theta_partial']} times, "
+             f"finish {launches['theta_finish']}")
+
+    # the same calls without the group
+    t0 = time.perf_counter()
+    em_1 = run_em(copy.deepcopy(model0), ref, bundle, EMConfig(),
+                  need_posteriors=True, device=dev)
+    secs["one_process_em"] = time.perf_counter() - t0
+    err_em = close(torch.as_tensor(em_g.counts),
+                   torch.as_tensor(em_1.counts), 1e-5, 1e-6,
+                   "16a: counts with the group against without")
+    if abs(em_g.rounds - em_1.rounds) > 2:
+        fail(f"16a: {em_g.rounds} rounds with the group, {em_1.rounds} "
+             f"without")
+    lcp, lnp, eel, mw = em_1.log_conprb, em_1.log_ncp, em_1.eel, \
+        em_1.model.mw
+    g_1, g_d = (run_gibbs(hits, lcp, lnp, M, cnt.N0, eel, mw, gi, gcfg,
+                          omit=bundle.omit, device=dev, dist=x)
+                for x in (None, d1))
+    if not torch.equal(g_1.countvectors, g_d.countvectors):
+        fail("16a: Gibbs count vectors differ with the group, on the same "
+             "frozen conprbs")
+    c_1, c_d = (run_ci(g_1.countvectors, eel, mw, gi, cicfg, device=dev,
+                       dist=x) for x in (None, d1))
+    _bounds_equal(c_d, c_1, "16a: with the group, the same count vectors")
+
+    # sync-free with the group: the fused loop and a theta-loop segment
+    refd, m1, m2, hd = em_mod.upload(ref, bundle, False, dev)
+    kcfg = em_mod.kernel_config(model0, bundle, int(m1.codes.shape[1]))
+    pre = conprb.precompute_profile_indices_fused(kcfg, refd, m1, m2, hd)
+    dm = model_arrays_to_torch(model0.device_arrays(), dev)
+    mdata = model_loop.build_model_loop_data(
+        kcfg, refd, m1, m2, hd, pre, dm, model0.npro.c, cnt.N0,
+        float(model0.spec.probF))
+    tables = model_loop.tables_from_model(kcfg, dm)
+    th0 = torch.as_tensor(em_mod._theta_init(cnt, M),
+                          dtype=torch.float32).to(dev)
+    data = theta.scale_conprbs(hd, torch.as_tensor(lcp).to(dev),
+                               torch.as_tensor(lnp).to(dev), M,
+                               float(cnt.N0))
+    state = theta.round_state(data, theta.SEGMENT, dev)
+    state.ring[0] = th0
+
+    def fused():
+        return model_loop.run_model_loop(kcfg, mdata, tables, th0, 10,
+                                         hd.n_reads, M, dist=d1)
+
+    fused()  # warm: the loop's first collectives
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        th_f, _suff = fused()
+        fast_sharded.sharded_rounds(state, data, theta.SEGMENT, d1)
+    except RuntimeError as exc:
+        fail(f"16a: the fused loop or the sharded theta rounds synchronised "
+             f"with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    if abs(float(th_f.double().sum()) - 1.0) > 1e-4:
+        fail("16a: the fused loop's theta is not a distribution")
+    del mdata, pre, tables
+
+    # K1's halves at full width: held, timed, bound
+    th = torch.as_tensor(np.random.default_rng(1).dirichlet(np.ones(M + 1)),
+                         dtype=torch.float32).to(dev)
+    err_k1 = hold_split_k1(data, th, d1, "16a")
+    st1 = theta.round_state(data, 1, dev)
+    st1.ring[0] = th
+    part_ms = time_cuda(lambda: theta.theta_partial(st1, data, 0))
+    fin_ms = time_cuda(lambda: theta.theta_finish(st1, data, 0))
+    H, N, M1 = hd.n_hits, hd.n_reads, M + 1
+    # partial: sid, rid, cps per hit, ncs and offsets per read, theta read,
+    # contrib and the noise sum written; finish: contrib, theta read,
+    # counts and theta_new written
+    pb_ms, pb_by = bound(H * 12 + N * 12 + M1 * 12, 4 * H + 3 * N, mem_rate,
+                         op_rate)
+    fb_ms, fb_by = bound(M1 * (8 + 4 + 8 + 4), 6 * M1, mem_rate, op_rate)
+
+    # the theta loop with and without the group, in turns (ABBA twice)
+    rounds = 500
+    walls = {"one_process": [], "group": []}
+    for which in ("one_process", "group", "group", "one_process") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "group":
+            _t, r = fast_sharded.run_theta_loop_sharded(
+                th0, data, d1, min_round=rounds, max_round=rounds)
+        else:
+            _t, r = theta.run_theta_loop(th0, data, min_round=rounds,
+                                         max_round=rounds)
+        torch.cuda.synchronize()
+        walls[which].append((time.perf_counter() - t0) * 1e3 / rounds)
+        if r != rounds:
+            fail(f"16a: theta loop ran {r} rounds, not {rounds}")
+    per_round = {k: statistics.median(v) for k, v in walls.items()}
+    # device time of K1's halves inside the sharded loop (the per-call
+    # times above include the host's enqueue, which the card waits for)
+    prof_rounds = 100
+    by_name, idle = phase_profile(
+        f"16a sharded theta loop, {prof_rounds} rounds",
+        lambda: fast_sharded.run_theta_loop_sharded(
+            th0, data, d1, min_round=prof_rounds, max_round=prof_rounds))
+
+    def device_us(*kernels):  # per launch: the profiler may drop events
+        return sum(t / c for n, (c, t) in by_name.items()
+                   if any(k in n for k in kernels))
+
+    part_dev, fin_dev = (device_us("reads_kernel"),
+                         device_us("counts_kernel", "total_kernel",
+                                   "mstep_kernel"))
+
+    # what 16b compares with
+    np.savez(os.path.join(d, "world1.npz"), lcp=lcp, lnp=lnp, eel=eel,
+             mw=mw, counts=em_1.counts, rounds=em_1.rounds,
+             cvs=g_1.countvectors.cpu().numpy(),
+             **{f"{lvl}.{f}": getattr(getattr(c_1, lvl), f)
+                for lvl in ("tpm", "fpkm", "gene_tpm", "gene_fpkm")
+                for f in ("lb", "ub", "cqv")})
+    del em_g, g_g, g_1, g_d, c_1, c_d, data, state, st1
+    torch.cuda.empty_cache()
+    out = {"backend": d1.backend, "world": d1.world, "stage_s": secs,
+           "rounds": em_1.rounds, "counts_max_abs_err": err_em,
+           "gibbs_countvectors": "identical", "ci_bounds": "identical",
+           "theta_loop_ms_per_round": per_round,
+           "theta_loop_walls_ms_per_round": walls,
+           "bytes_reduced_per_round": (M + 2) * 8,
+           "phase_s": time.perf_counter() - t_start}
+    split = {"split_partial_ms": part_ms[0], "split_finish_ms": fin_ms[0],
+             "split_partial_device_ms": part_dev / 1e3,
+             "split_finish_device_ms": fin_dev / 1e3,
+             "sharded_loop_idle_share": idle,
+             "split_partial_bound_ms": pb_ms, "split_partial_bound_by": pb_by,
+             "split_finish_bound_ms": fb_ms, "split_finish_bound_by": fb_by,
+             "split_max_abs_err": err_k1}
+    log(f"16a: world 1 through NCCL: launches {launches}; stages with the "
+        f"group {secs['group']}, run_em without {secs['one_process_em']:.3f}"
+        f" s; counts within {err_em:.3g} of the run without the group, "
+        f"{em_1.rounds} rounds; Gibbs count vectors and CI bounds identical "
+        f"on shared inputs; the fused loop and {theta.SEGMENT} sharded theta "
+        f"rounds ran with no host sync; K1 partial {part_ms[0]:.4f} ms a "
+        f"call, {part_dev / 1e3:.4f} ms on the device (bound {pb_ms:.4f}, "
+        f"{pb_by}), finish {fin_ms[0]:.4f} ms a call, {fin_dev / 1e3:.4f} "
+        f"on the device (bound {fb_ms:.4f}); sharded loop idle share "
+        f"{idle:.3f}; theta loop {per_round['one_process']:.4f} ms per "
+        f"round without the group, {per_round['group']:.4f} with it "
+        f"(ABBA x 2, {rounds} rounds), {(M + 2) * 8} bytes summed per round;"
+        f" card {_card()}")
+    return launches, out, split
+
+
+def phase_group_driver(d, device: str = "cuda"):
+    """16a, the driver: calculate-expression --calc-pme --calc-ci on phase
+    15's reference and reads (in `d`) as a subprocess with the RSEM_TPU_*
+    variables of one process (an NCCL group of 1), against the same run in
+    this process without them: .cnt identical, expected counts and TPM
+    within rtol 1e-5, posterior means within max(2 sd, 1.5), CI bounds at
+    tests/test_torch_ci.py's golden tolerances."""
+    import numpy as np
+
+    from rsem_tpu_torch.__main__ import main as cli
+
+    def args(out):
+        return ["calculate-expression", "--alignments", "aln.sam", "gref",
+                out, "-q", "--calc-pme", "--calc-ci", "--no-bam-output",
+                "--seed", "16", "--time", "--device", device]
+
+    env = dict(os.environ, PYTHONPATH=ROOT, RSEM_TPU_NUM_PROCESSES="1",
+               RSEM_TPU_PROCESS_ID="0",
+               RSEM_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "rsem_tpu_torch",
+                          *args("grp")], cwd=d, env=env, text=True,
+                         capture_output=True, timeout=GROUP_TIMEOUT_S)
+    t1 = time.perf_counter()
+    if res.returncode != 0:
+        fail(f"16a: calculate-expression with the variables set failed:\n"
+             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        if cli(args("one")) != 0:
+            fail("16a: calculate-expression in process failed")
+    finally:
+        os.chdir(cwd)
+    t2 = time.perf_counter()
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    cnt = [open(p(f"{x}.stat/{x}.cnt")).read() for x in ("grp", "one")]
+    if cnt[0] != cnt[1]:
+        fail("16a: the driver's .cnt differs with the group")
+    worst = {}
+    for kind in ("isoforms", "genes"):
+        h, got = _rows(p(f"grp.{kind}.results"))
+        h1, want = _rows(p(f"one.{kind}.results"))
+        if h != h1 or len(got) != len(want):
+            fail(f"16a: {kind} tables differ in shape")
+        for c in ("expected_count", "TPM"):
+            g, w = _col(h, got, c), _col(h, want, c)
+            bad = np.abs(g - w) > 1e-8 + 1e-5 * np.abs(w)
+            if bad.any():
+                fail(f"16a: {kind} {c} off in {int(bad.sum())} rows")
+        sd = np.maximum(_col(h, got, "posterior_standard_deviation_of_count"),
+                        _col(h, want, "posterior_standard_deviation_of_count"))
+        dp = np.abs(_col(h, got, "posterior_mean_count")
+                    - _col(h, want, "posterior_mean_count"))
+        if (dp > np.maximum(2 * sd, 1.5)).any():
+            fail(f"16a: {kind} posterior means off in "
+                 f"{int((dp > np.maximum(2 * sd, 1.5)).sum())} rows")
+        lb, ub = (_col(h, want, c) for c in ("TPM_ci_lower_bound",
+                                             "TPM_ci_upper_bound"))
+        width = np.maximum(ub - lb, 1.0)
+        for c, ref_c in (("TPM_ci_lower_bound", lb),
+                         ("TPM_ci_upper_bound", ub)):
+            if (np.abs(_col(h, got, c) - ref_c) >= 0.12 * width + 0.5).any():
+                fail(f"16a: {kind} {c} off the golden tolerance")
+        cq, cq1 = (_col(h, x, "TPM_coefficient_of_quartile_variation")
+                   for x in (got, want))
+        if (np.abs(cq - cq1) > np.maximum(0.03, 0.12 * np.abs(cq1))).any():
+            fail(f"16a: {kind} CQV off the golden tolerance")
+        worst[kind] = float((dp / np.maximum(2 * sd, 1.5)).max())
+    stages = {x: _time_stages(p(f"{x}.time")) for x in ("grp", "one")}
+    for x, wall in (("grp", t1 - t0), ("one", t2 - t1)):
+        # interpreter start, imports and kernel loads: before the driver's
+        # first stage
+        stages[x]["outside the stages"] = wall - sum(stages[x].values())
+    out = {"with_variables_s": t1 - t0, "in_process_s": t2 - t1,
+           "stages_with_variables_s": stages["grp"],
+           "stages_in_process_s": stages["one"],
+           "pme_worst_share_of_tolerance": worst}
+    split = "; ".join(f"{k} {stages['grp'][k]:.2f} / "
+                      f"{stages['one'].get(k, 0.0):.2f}"
+                      for k in stages["grp"])
+    log(f"16a: calculate-expression --calc-pme --calc-ci on phase 15's "
+        f"1M reads: with the variables (NCCL group of 1, subprocess) "
+        f"{t1 - t0:.2f} s, in process without {t2 - t1:.2f} s; .cnt "
+        f"identical, counts and TPM within rtol 1e-5, PME and CI within "
+        f"tolerance (worst PME at {worst} of it); seconds by --time stage, "
+        f"with / without: {split}")
+    return out
+
+
+def _time_stages(path):
+    """{stage: seconds} of a driver's .time file (its comment lines; a
+    stage run twice is summed)."""
+    secs = {}
+    for line in open(path).read().splitlines()[3:]:
+        name, dt = line[2:].split(": ")
+        secs[name] = secs.get(name, 0.0) + float(dt.split()[0])
+    return secs
+
+
+def phase_group_world2(d):
+    """16b: world size 2 on the one card over gloo: two subprocesses
+    (rank16_main), each with its own gloo group on cuda:0, run run_em,
+    run_gibbs and run_ci on the full-width workload; rank 0 holds them
+    against 16a's results (world1.npz in `d`), both hold K1's halves and
+    K5 (chain0 = 0 and 4) against their plain versions. Two ranks share
+    one card, so their times are those of a correctness run, not of
+    scaling; each rank's default PreIdx budget reads the card's free
+    memory as its own (at full width a rank's PreIdx is ~0.64 GB, far
+    below it)."""
+    import json as _json
+
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(2):
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank16", d,
+             f"127.0.0.1:{port}", str(r)],
+            env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=GROUP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"16b: rank {r} failed:\n{logs[r][-6000:]}")
+    ranks = [_json.load(open(os.path.join(d, f"rank{r}.json")))
+             for r in range(2)]
+    out = {"ranks": ranks, "phase_s": time.perf_counter() - t0}
+    log(f"16b: world 2 on one card over gloo: rank 0 equals 16a's world 1 "
+        f"(counts within {ranks[0]['counts_max_abs_err']:.3g}, "
+        f"{ranks[0]['rounds']} rounds; Gibbs count vectors and CI bounds "
+        f"identical); K1 halves and K5 at chain0 "
+        f"{[x['chain0'] for x in ranks]} equal their plain versions; "
+        f"launches {[x['launches'] for x in ranks]}; correctness-run stage "
+        f"seconds (two ranks share one card) "
+        f"{[x['stage_s'] for x in ranks]}; phase {out['phase_s']:.1f} s")
+    return out
+
+
+def rank16_main(d: str, coord: str, rank: int) -> int:
+    """One rank of 16b, started by phase_group_world2: a gloo group of 2
+    on cuda:0 with its rendezvous at `coord` (host:port)."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.engine import em as em_mod
+    from rsem_tpu_torch.engine.ci import CIConfig, run_ci
+    from rsem_tpu_torch.engine.em import EMConfig, run_em
+    from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
+    from rsem_tpu_torch.ops import gibbs, theta
+    from rsem_tpu_torch.parallel import distributed, mesh
+
+    dist = distributed.init_group("cuda:0", f"tcp://{coord}", 2, rank,
+                                  backend="gloo", timeout_s=GROUP_TIMEOUT_S)
+    if dist.world != 2 or dist.backend != "gloo":
+        fail(f"16b: no gloo group of 2 ({dist})")
+    dev = dist.device
+    ref, bundle, model = make_workload()
+    w1 = np.load(os.path.join(d, "world1.npz"))
+    M, cnt, hits = ref.M, bundle.cnt, bundle.hits
+    gi = gene_groups(M)
+    wrappers = group_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    secs = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    em = run_em(copy.deepcopy(model), ref, bundle, EMConfig(),
+                need_posteriors=False, device=dev, dist=dist)
+    t1 = time.perf_counter()
+    g = run_gibbs(hits, w1["lcp"], w1["lnp"], M, cnt.N0, w1["eel"],
+                  w1["mw"], gi, GibbsConfig(seed=1), omit=bundle.omit,
+                  device=dev, dist=dist)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ci = run_ci(w1["cvs"], w1["eel"], w1["mw"], gi, CIConfig(seed=2),
+                device=dev, dist=dist)
+    torch.cuda.synchronize()
+    secs = {"em": t1 - t0, "gibbs": t2 - t1, "ci": time.perf_counter() - t2}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    _path_launches(f"16b rank {dist.rank}", wrappers, launches)
+    err = close(torch.as_tensor(em.counts), torch.as_tensor(w1["counts"]),
+                1e-5, 1e-6, f"16b rank {dist.rank}: counts against world 1")
+    if abs(em.rounds - int(w1["rounds"])) > 2:
+        fail(f"16b: {em.rounds} rounds, world 1 {int(w1['rounds'])}")
+    if not np.array_equal(g.countvectors.cpu().numpy(), w1["cvs"]):
+        fail(f"16b rank {dist.rank}: Gibbs count vectors differ from world "
+             f"1's on the same frozen conprbs")
+    for lvl in ("tpm", "fpkm", "gene_tpm", "gene_fpkm"):
+        for f in ("lb", "ub", "cqv"):
+            if not np.array_equal(getattr(getattr(ci, lvl), f),
+                                  w1[f"{lvl}.{f}"]):
+                fail(f"16b rank {dist.rank}: CI {lvl}.{f} differs from "
+                     f"world 1's on the same count vectors")
+
+    # K1's halves on this rank's reads, K5 on this rank's chains
+    shard = mesh.shard_bundle_by_read(bundle, dist.world, dist.rank)
+    _refd, _m1, _m2, hd = em_mod.upload(ref, shard.bundle, False, dev)
+    h0, h1 = shard.hit_bounds[dist.rank], shard.hit_bounds[dist.rank + 1]
+    r0, r1 = shard.bounds[dist.rank], shard.bounds[dist.rank + 1]
+    data = theta.scale_conprbs(hd, torch.as_tensor(w1["lcp"][h0:h1]).to(dev),
+                               torch.as_tensor(w1["lnp"][r0:r1]).to(dev), M,
+                               float(cnt.N0))
+    th = torch.as_tensor(np.random.default_rng(1).dirichlet(np.ones(M + 1)),
+                         dtype=torch.float32).to(dev)
+    err_k1 = hold_split_k1(data, th, dist, f"16b rank {dist.rank}")
+    layout = gibbs.build_layout(hits, w1["lcp"], w1["lnp"], M, device=dev)
+    base = torch.ones(M + 1)
+    base[0] += cnt.N0 + layout.n_noise_fixed
+    chain0 = 4 * dist.rank
+    assigns, tab = gibbs.init_chains(layout, base, 8, seed=1, device=dev,
+                                     chains=slice(chain0, chain0 + 4))
+    k5_replay(layout, assigns, tab, 1, f"16b rank {dist.rank}, chains "
+              f"{chain0}-{chain0 + 3}", chain0=chain0)
+    with open(os.path.join(d, f"rank{dist.rank}.json"), "w") as f:
+        _json.dump({"rank": dist.rank, "device": str(dev),
+                    "launches": launches, "stage_s": secs,
+                    "rounds": em.rounds, "counts_max_abs_err": err,
+                    "k1_split_max_abs_err": err_k1, "chain0": chain0}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2752,7 +3303,12 @@ def main(argv=None) -> int:
                     help="another tree (e.g. the parent commit unpacked "
                          "with git archive) whose K3 is timed beside this "
                          "tree's at every K3 input")
+    ap.add_argument("--rank16", nargs=3, metavar=("DIR", "COORD", "RANK"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank16:  # one rank of phase 16b, started by phase_group_world2
+        d, coord, rank = args.rank16
+        return rank16_main(d, coord, int(rank))
     _name, mem_rate, op_rate = phase_device()
     import torch
 
@@ -2785,7 +3341,7 @@ def main(argv=None) -> int:
     rows.append(phase_k5(ref, bundle, em, dev, mem_rate, op_rate))
     phase_goldens()
     sim_tpm = em.tpm  # phase 11 draws from phase 6's fit
-    del bundle, model, em
+    del em  # the workload stays for phase 16
     torch.cuda.empty_cache()
     large_launches, large = phase_large(dev, k3)
     torch.cuda.empty_cache()
@@ -2808,11 +3364,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         prsem_launches, prsem_k5, prsem = phase_prsem(d, k3=k3)
-    for k, n in prsem_launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was not launched on the pRSEM run")
-    if min(prsem_k5) <= 0:
-        fail(f"K5 launches per pRSEM Gibbs run: {prsem_k5}")
+        for k, n in prsem_launches.items():
+            if n <= 0:
+                fail(f"kernel {k} was not launched on the pRSEM run")
+        if min(prsem_k5) <= 0:
+            fail(f"K5 launches per pRSEM Gibbs run: {prsem_k5}")
+        torch.cuda.empty_cache()
+        # phase 16: the process group (16a in process, 16b two ranks)
+        group_launches, group, k1_split = phase_group(
+            ref, bundle, model, dev, mem_rate, op_rate, d)
+        group["driver"] = phase_group_driver(d)
+        torch.cuda.empty_cache()
+        group["world2"] = phase_group_world2(d)
+        torch.distributed.destroy_process_group()
     for r in rows:
         # EM kernels: launches of the main path; K5: of the posterior path
         r["launches"] = launches.get(r["name"], post_launches[r["name"]])
@@ -2824,6 +3388,14 @@ def main(argv=None) -> int:
         r["prsem_launches"] = prsem_launches[r["name"]]
         if r["name"] == "sweep_part":  # uniform prior, then pRSEM's
             r["prsem_gibbs_launches"] = prsem_k5
+        # phase 16: the posterior path with a group of 1 (NCCL), and each
+        # rank's of the group of 2 (gloo); K1 runs as its two halves there
+        name = "theta_partial" if r["name"] == "theta_round" else r["name"]
+        r["sharded_launches"] = group_launches[name]
+        r["sharded_world2_launches"] = [
+            x["launches"][name] for x in group["world2"]["ranks"]]
+        if r["name"] == "theta_round":
+            r.update(k1_split)
         r["kernel_ms"] = r["ms"]
     log(json.dumps({"run_em": {"cold_s": cold, "warm_s": warm,
                                "rounds": rounds},
@@ -2831,7 +3403,8 @@ def main(argv=None) -> int:
                     "windowed": windowed, "posterior_s": post_secs,
                     "large_run": large, "ingest": ingest,
                     "simulate": simulate, "allele": allele,
-                    "bam_options": bam_options, "prsem": prsem}))
+                    "bam_options": bam_options, "prsem": prsem,
+                    "group": group}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,6 +110,7 @@ struct Params {
   int n_tiles, log_k;
   int64_t n_reads, T;
   uint32_t seed_part, sweep;
+  uint32_t chain0;  // global index of chain 0 (the uniforms' chain key)
 };
 
 struct Ctrl {
@@ -146,9 +147,11 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h;
 }
 
-// f32 uniform of a read with 24 random bits, keyed on its first slot.
-__device__ __forceinline__ float read_uniform(uint32_t h, int c, int first) {
-  const uint32_t k = h + (uint32_t)c * (uint32_t)kTileSlots + (uint32_t)first;
+// f32 uniform of a read with 24 random bits, keyed on its global chain
+// index and its first slot.
+__device__ __forceinline__ float read_uniform(uint32_t h, uint32_t c,
+                                              int first) {
+  const uint32_t k = h + c * (uint32_t)kTileSlots + (uint32_t)first;
   return (float)((mix32(mix32(k)) >> 7) & 0xFFFFFFu) * (1.0f / 16777216.0f);
 }
 
@@ -410,7 +413,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float w = __fmul_rn(fmaxf(__fsub_rn(tv[i], own), 0.0f), cpv[i]);
         const float w0 = __fmul_rn(
             fmaxf(__fsub_rn(c0, has ? 0.0f : 1.0f), 0.0f), ncv[i]);
-        const float u = read_uniform(h, c, r << log_k);
+        const float u = read_uniform(h, p.chain0 + c, r << log_k);
         float tot = w, pre = w;
         for (int o = 1; o < K; o <<= 1)
           tot = __fadd_rn(tot, __shfl_xor_sync(rsem::kFullMask, tot, o));
@@ -627,8 +630,8 @@ __global__ void __launch_bounds__(kThreads, 1) wide_kernel(const Params p) {
       const int f = q * kThreads + tid;
       const int r = f >> log_k, j = f & (K - 1);
       const float w0 = wd.rd_w0[r];
-      const float target = __fmul_rn(read_uniform(h, c, r << log_k),
-                                     __fadd_rn(wd.part[f >> 5], w0));
+      const float u = read_uniform(h, p.chain0 + c, r << log_k);
+      const float target = __fmul_rn(u, __fadd_rn(wd.part[f >> 5], w0));
       if (target < w0) noise |= 1u << q;
       const float t2 = __fsub_rn(target, w0);
       atomicMin(&wd.chosen[r], wd.pre[f] > t2 ? j : wd.last[r]);
@@ -710,22 +713,24 @@ bool aligned16(const void* p) {
 // One sweep of a part's tiles for every chain, in place. sid/cps: [n_tiles *
 // 8192]; ncs: [n_tiles * 8192 / K]; assign: [C, n_reads] slot of each read
 // (-1 = noise); table: [C, T] f32 counts + pseudo (index 0 = noise; sids are
-// >= 1); dscratch: [C, T] int32 zeros (left zero). sid, cps, ncs and assign
-// must be 16-byte aligned.
+// >= 1); dscratch: [C, T] int32 zeros (left zero); chain0: the global index
+// of chain 0, whose uniforms chain c draws as chain chain0 + c (a rank that
+// holds chains 4-7 of 8 passes 4). sid, cps, ncs and assign must be 16-byte
+// aligned.
 extern "C" int rsem_gibbs_sweep(const int32_t* sid, const float* cps,
                                 const float* ncs, int32_t* assign,
                                 float* table, int32_t* dscratch, int n_tiles,
                                 int log_k, int C, int64_t n_reads, int64_t T,
                                 uint32_t seed_part, uint32_t sweep,
-                                cudaStream_t stream) {
+                                uint32_t chain0, cudaStream_t stream) {
   if (n_tiles == 0 || C == 0) return (int)cudaGetLastError();
   if (log_k < 0 || (1 << log_k) > kTileSlots || T <= 0 || T > INT_MAX ||
       n_reads != (int64_t)n_tiles * (kTileSlots >> log_k) ||
       dscratch == nullptr || !aligned16(sid) || !aligned16(cps) ||
       !aligned16(ncs) || !aligned16(assign))
     return (int)cudaErrorInvalidValue;
-  const Params p{sid,     cps,   ncs,     assign, table,     dscratch,
-                 n_tiles, log_k, n_reads, T,      seed_part, sweep};
+  const Params p{sid,     cps,   ncs,     assign,    table, dscratch, n_tiles,
+                 log_k,   n_reads, T,     seed_part, sweep, chain0};
   if (log_k > 5) return launch(wide_kernel, p, C, 1, kWideSmem, stream);
   return launch(narrow_kernel, p, C, kCluster, kNarrowSmem, stream);
 }

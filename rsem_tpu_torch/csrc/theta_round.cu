@@ -38,6 +38,16 @@
 //     exact); acc[0] left zero.
 // The atomics make the f64 sums' last bits depend on the order in which
 // blocks finish, as index_add_ on the card does.
+//
+// Read-sharded rounds (parallel/fast_sharded.py) split a round in two C
+// calls around one all_reduce: rsem_theta_partial runs kernel 1 on the
+// rank's reads, leaving its partial contrib and noise sum in the caller's
+// buffer; the ranks sum [contrib | acc[0]] (contiguous, M+2 doubles); then
+// rsem_theta_finish runs kernels 2 and 3 on the sums, with the total
+// recomputed between them by one block in a fixed order (total_kernel), so
+// the total, theta and the stop count are the same bits on every rank
+// whatever order kernel 2's blocks added theirs in, and all ranks stop at
+// the same round.
 
 #include "common.cuh"
 
@@ -169,6 +179,27 @@ __global__ void __launch_bounds__(kThreads) mstep_kernel(
   if (blockIdx.x == 0 && threadIdx.x == 0) acc[kNoise] = 0.0;
 }
 
+// The total of counts[0..n_tx) summed in a fixed order (thread t takes t,
+// t + 1024, ...; then the warps' butterflies and the warps in order) into
+// acc[1], over the counts kernel's order-dependent atomic sum.
+constexpr int kTotalThreads = 1024;
+
+__global__ void __launch_bounds__(kTotalThreads) total_kernel(
+    const double* __restrict__ counts, int64_t n_tx,
+    double* __restrict__ acc) {
+  __shared__ double s_warp[kTotalThreads / 32];
+  double v = 0.0;
+  for (int64_t m = threadIdx.x; m < n_tx; m += kTotalThreads) v += counts[m];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(rsem::kFullMask, v, o);
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t = 0.0;
+    for (int i = 0; i < kTotalThreads / 32; ++i) t += s_warp[i];
+    acc[kTotal] = t;
+  }
+}
+
 }  // namespace
 
 // Runs n_rounds rounds from ring[0] (ring: [n_rounds + 1, n_tx] f32),
@@ -202,4 +233,41 @@ extern "C" int rsem_theta_rounds(
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// Kernel 1 of one round on this rank's reads: adds the rank's partial sums
+// into contrib (f64 [n_tx]) and acc[0] (the noise sum), and zeroes acc[1]
+// and *tot for the finish.
+extern "C" int rsem_theta_partial(const int32_t* sid, const int32_t* rid,
+                                  const float* cps, const float* ncs,
+                                  const int64_t* read_offsets,
+                                  int64_t n_reads, const float* theta,
+                                  double* contrib, double* acc, int32_t* tot,
+                                  cudaStream_t stream) {
+  if (n_reads < 0) return (int)cudaErrorInvalidValue;
+  const int g_reads = rsem::resident_grid(reads_kernel, kThreads,
+                                          (n_reads + 31) / 32, kWarps);
+  reads_kernel<<<g_reads, kThreads, 0, stream>>>(
+      sid, rid, cps, ncs, read_offsets, n_reads, theta, contrib, acc, tot);
+  return (int)cudaGetLastError();
+}
+
+// Kernels 2 and 3 of one round on the summed contrib and acc[0]: writes
+// counts, theta_new and *tot, and leaves contrib and acc[0] zero. The
+// total is summed in a fixed order between them, so every rank computes
+// the same bits.
+extern "C" int rsem_theta_finish(int64_t n_tx, double n0, const float* theta,
+                                 float* theta_new, double* counts,
+                                 int32_t* tot, double* contrib, double* acc,
+                                 cudaStream_t stream) {
+  if (n_tx <= 0) return (int)cudaErrorInvalidValue;
+  const int g_counts =
+      rsem::resident_grid(counts_kernel, kThreads, n_tx, kThreads);
+  const int g_m = rsem::resident_grid(mstep_kernel, kThreads, n_tx, kThreads);
+  counts_kernel<<<g_counts, kThreads, 0, stream>>>(contrib, n_tx, theta, n0,
+                                                   counts, acc);
+  total_kernel<<<1, kTotalThreads, 0, stream>>>(counts, n_tx, acc);
+  mstep_kernel<<<g_m, kThreads, 0, stream>>>(theta, counts, acc, theta_new,
+                                             n_tx, tot);
+  return (int)cudaGetLastError();
 }

@@ -16,8 +16,18 @@ summed in float64 on the device. With an allele-specific reference
 (`ta`, the transcript -> allele grouping) the moments add the
 transcript-level count variance `pve_c_trans`, summed as the gene one is.
 
-Not ported here: the XLA blocked sweep (`n_blocks`) and the mesh path
-(ROADMAP A12), and the TPU watchdog's `sweep_segment`.
+Several devices (`dist`, a parallel.distributed process group; the JAX
+package's mesh branch, engine/gibbs.py:651-660 there): where the chains
+tile the ranks, each rank builds the layout from all hits, draws the
+initial state of all chains and keeps its own (`init_chains(chains=)`),
+runs K5 on them with its first chain's global index (`chain0`, the
+uniforms' chain key, so every chain draws what it would in one process),
+and the ranks gather the retained count vectors; the moments then run on
+every rank. Otherwise every rank runs all the chains.
+
+Not ported here: the XLA blocked sweep (`n_blocks`), which the JAX mesh
+path uses and the port needs neither there nor elsewhere, and the TPU
+watchdog's `sweep_segment`.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from ..ops.gibbs import (
     part_seed,
     sweep_part,
 )
+from ..parallel.distributed import Dist, gather_rows
 from ..utils.device import DeviceLike, fetch64, resolve_device
 
 
@@ -171,13 +182,14 @@ def retained_index(sweep: int, cfg: GibbsConfig) -> Optional[int]:
 
 
 def run_chains(layout: GibbsLayout, assigns: List[torch.Tensor],
-               table: torch.Tensor, pseudo: torch.Tensor, cfg: GibbsConfig
-               ) -> torch.Tensor:
-    """All sweeps from a given chain state (updated in place). Returns the
+               table: torch.Tensor, pseudo: torch.Tensor, cfg: GibbsConfig,
+               chain0: int = 0) -> torch.Tensor:
+    """All sweeps from a given chain state (updated in place) of C of the
+    cfg.n_chains chains, chain0 the global index of the first. Returns the
     retained count vectors [C, samples_per_chain, M+1] f32 (counts =
     table - pseudo)."""
     C = table.shape[0]
-    spc = cfg.nsamples // C
+    spc = cfg.nsamples // cfg.n_chains
     total = cfg.burnin + 1 + (spc - 1) * cfg.gap
     seeds = [part_seed(cfg.seed, pi) for pi in range(len(layout.parts))]
     cvs = torch.zeros((C, spc, layout.M + 1), dtype=torch.float32,
@@ -185,7 +197,7 @@ def run_chains(layout: GibbsLayout, assigns: List[torch.Tensor],
     scratch = delta_scratch(table)
     for s in range(total):
         for part, a, sp in zip(layout.parts, assigns, seeds):
-            sweep_part(a, table, part, sp, s, scratch)
+            sweep_part(a, table, part, sp, s, scratch, chain0)
         k = retained_index(s, cfg)
         if k is not None:
             cvs[:, k] = table - pseudo
@@ -206,14 +218,17 @@ def run_gibbs(
     prior: Optional[np.ndarray] = None,
     device: DeviceLike = None,
     ta=None,
+    dist: Optional[Dist] = None,
 ) -> GibbsResult:
     """hits: io.HitArrays; log_conprb/log_ncp: final-model conprbs from EM
     (the .ofg content); gi: gene GroupInfo; prior: [M+1] per-isoform
     pseudo-counts (pRSEM's --prior); ta: transcript -> allele GroupInfo of
     an allele-specific reference (adds pve_c_trans). Runs on CUDA unless
     device="cpu"; the chains' initial draws come from a CPU generator, so
-    both devices start from one state."""
-    dev = resolve_device(device)
+    both devices start from one state. dist: the process group; its ranks
+    (on dist.device) split the chains when n_chains is a multiple of the
+    ranks, and every rank returns the same result."""
+    dev = dist.device if dist is not None else resolve_device(device)
     C = cfg.n_chains
     if cfg.nsamples % C:
         raise ValueError(f"nsamples ({cfg.nsamples}) must be divisible by "
@@ -224,7 +239,13 @@ def run_gibbs(
     layout = build_layout(hits, log_conprb, log_ncp, M, device=dev)
     table_base = torch.as_tensor(init_counts + pseudo, dtype=torch.float32)
     table_base[0] += N0 + layout.n_noise_fixed
-    assigns, table = init_chains(layout, table_base, C, cfg.seed, dev)
-    cvs = run_chains(layout, assigns, table, pseudo_d, cfg)
+    split = dist is not None and C % dist.world == 0
+    per = C // dist.world if split else C
+    chain0 = dist.rank * per if split else 0
+    assigns, table = init_chains(layout, table_base, C, cfg.seed, dev,
+                                 chains=slice(chain0, chain0 + per))
+    cvs = run_chains(layout, assigns, table, pseudo_d, cfg, chain0)
+    if split:
+        cvs = gather_rows(cvs, [per] * dist.world, dist)
     return moments(cvs.reshape(-1, M + 1), eel, mw, pseudo, totc, gi,
                    cfg.keep_countvectors, ta=ta)

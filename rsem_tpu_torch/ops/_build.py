@@ -43,8 +43,10 @@ SIGNATURES = {
                     _I64, _I32, _I32, _P, _P],
     "rsem_theta_rounds": [_P, _P, _P, _P, _P, _I64, _I64, _F64, _P, _P, _P,
                           _P, _P, _I32, _P],
+    "rsem_theta_partial": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
+    "rsem_theta_finish": [_I64, _F64, _P, _P, _P, _P, _P, _P, _P],
     "rsem_gibbs_sweep": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I64,
-                         _I64, _U32, _U32, _P],
+                         _I64, _U32, _U32, _U32, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

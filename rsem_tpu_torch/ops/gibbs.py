@@ -245,12 +245,14 @@ def part_seed(seed: int, part_index: int) -> int:
 
 
 def read_uniforms(seed_part: int, sweep: int, tile: int, C: int, K: int,
-                  device=None) -> torch.Tensor:
+                  device=None, chain0: int = 0) -> torch.Tensor:
     """[C, TILE_SLOTS // K] f32: the uniform (24 random bits) of every read
     of a tile, keyed h + (c*64 + row)*128 + lane at the read's first slot,
-    h the hash of (part seed, sweep, tile)."""
+    h the hash of (part seed, sweep, tile), c = chain0 + the local chain
+    index (the global chain of a rank that holds chains from chain0 on)."""
     h = mix32_int(seed_part + sweep * GOLDEN + tile * TILE_MUL)
-    c = torch.arange(C, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(chain0, chain0 + C, dtype=torch.int64,
+                     device=device)[:, None]
     r = torch.arange(TILE_SLOTS // K, dtype=torch.int64, device=device)
     k = (h + c * TILE_SLOTS + r[None, :] * K) & MASK32
     bits = (mix32(mix32(k)) >> 7) & 0xFFFFFF
@@ -325,8 +327,8 @@ def _check_state(assign: torch.Tensor, table: torch.Tensor,
 
 
 def sweep_part_plain(assign: torch.Tensor, table: torch.Tensor,
-                     part: GibbsPart, seed_part: int, sweep: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     part: GibbsPart, seed_part: int, sweep: int,
+                     chain0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K5: vectorised over the reads of a tile
     and the chains, looping over tiles. Updates assign and table in place."""
     C = assign.shape[0]
@@ -351,7 +353,7 @@ def sweep_part_plain(assign: torch.Tensor, table: torch.Tensor,
         w0 = (table[:, :1] - own0).clamp_min(0.0) * ncs  # [C, rpt]
         tot = _group_sum(w)[..., 0]
         pre = _group_prefix(w)
-        u = read_uniforms(seed_part, sweep, t, C, K, dev)
+        u = read_uniforms(seed_part, sweep, t, C, K, dev, chain0)
         target = u * (tot + w0)
         pick_noise = target < w0
         t2 = target - w0
@@ -385,18 +387,23 @@ def delta_scratch(table: torch.Tensor) -> torch.Tensor:
 
 def sweep_part(assign: torch.Tensor, table: torch.Tensor, part: GibbsPart,
                seed_part: int, sweep: int,
-               scratch: Optional[torch.Tensor] = None
+               scratch: Optional[torch.Tensor] = None, chain0: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sweep over a part's tiles for every chain (K5), IN PLACE.
 
     assign: [C, part.n_reads] int32 slot of each read (-1 = noise);
     table: [C, M+1] f32 counts + pseudo-counts (index 0 = noise);
     seed_part: uint32 part seed; sweep: global sweep index; scratch:
-    delta_scratch(table), reused across sweeps (None: one for this call).
+    delta_scratch(table), reused across sweeps (None: one for this call);
+    chain0: the global index of chain 0 (the uniforms' chain key: a rank
+    holding chains 4-7 of 8 passes 4 and draws as they would in one run).
     The plain version, which needs no scratch, runs on CPU tensors."""
     _check_state(assign, table, part, scratch)
+    if chain0 < 0:
+        raise ValueError(f"chain0 must be >= 0, not {chain0}")
     if assign.device.type == "cpu":
-        return sweep_part_plain(assign, table, part, seed_part, sweep)
+        return sweep_part_plain(assign, table, part, seed_part, sweep,
+                                chain0)
     if assign.device.type != "cuda":
         raise ValueError(f"unsupported device {assign.device}")
     for name, t in (("sid", part.sid), ("cps", part.cps), ("ncs", part.ncs),
@@ -410,7 +417,8 @@ def sweep_part(assign: torch.Tensor, table: torch.Tensor, part: GibbsPart,
         part.sid.data_ptr(), part.cps.data_ptr(), part.ncs.data_ptr(),
         assign.data_ptr(), table.data_ptr(), scratch.data_ptr(),
         part.n_tiles, part.K.bit_length() - 1, C, assign.shape[1], T,
-        seed_part & MASK32, sweep & MASK32, _build.stream_of(table)),
+        seed_part & MASK32, sweep & MASK32, chain0 & MASK32,
+        _build.stream_of(table)),
         "gibbs_sweep")
     sweep_part.launches += 1
     return assign, table
@@ -423,7 +431,8 @@ sweep_part.launches = 0
 # chain initialisation (pallas_gibbs.py:568-632)                     #
 # ------------------------------------------------------------------ #
 def init_chains(layout: GibbsLayout, table_base: torch.Tensor,
-                n_chains: int, seed: int, device=None
+                n_chains: int, seed: int, device=None,
+                chains: Optional[slice] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Initial assignments z ~ conprb (Gibbs.cpp:281-291), a Gumbel-max pick
     over [noise, slots] per read, plus the chains' count tables.
@@ -432,7 +441,10 @@ def init_chains(layout: GibbsLayout, table_base: torch.Tensor,
     initial state is the same whichever device the chains then run on.
     table_base: [M+1] f32 = init counts + pseudo, with [0] += N0 +
     n_noise_fixed. Returns (assign per part [C, n_reads] int32, tables
-    [C, M+1] f32), both on `device`."""
+    [C, M+1] f32), both on `device`; with `chains`, only those chains'
+    rows (all C are drawn all the same, so a rank's slice starts where the
+    whole run's chains would)."""
+    chains = slice(None) if chains is None else chains
     C = n_chains
     gen = torch.Generator().manual_seed(int(seed))
     counts = torch.zeros((C, table_base.shape[0]), dtype=torch.float64)
@@ -447,11 +459,11 @@ def init_chains(layout: GibbsLayout, table_base: torch.Tensor,
         pick = (logits - (-u.log()).log()).argmax(2)  # [C, nr]
         a = torch.where(valid & (pick > 0), pick - 1,
                         torch.full_like(pick, -1))
-        assigns.append(a.to(torch.int32).to(device))
+        assigns.append(a[chains].to(torch.int32).to(device))
         on = a >= 0
         sids = part.sid.cpu().long().view(nr, K).expand(C, nr, K).gather(
             2, a.clamp(min=0)[..., None])[..., 0]
         counts.scatter_add_(1, sids, on.double())
         counts[:, 0] += float(valid.sum()) - on.sum(1).double()
     tables = table_base.cpu()[None, :] + counts.to(torch.float32)
-    return assigns, tables.contiguous().to(device)
+    return assigns, tables[chains].contiguous().to(device)

@@ -31,7 +31,10 @@ in place of a static per-read key histogram with bf16-split MXU matmuls
 (which round each term to 2^-17 relative); `onehot_scatter` is
 `index_add_`, `gather_rows` indexing, and `seg_sum_sorted` (a double-float
 prefix sum) a float64 `index_add_`. Reads and hits carry no padding rows.
-The mesh branch (`axis_name`) belongs to the multi-device port.
+With a process group (`dist`, the read-sharded EM of engine/em.py) each
+rank runs the loop on its own reads and one all_reduce per round sums the
+expected counts and the float64 statistic accumulators, where the JAX
+package's `axis_name` branch psums; n0 is added once, after the sum.
 
 Scope: model variants whose masking weights and fixed terms stay fixed
 across the update rounds (`fused_supported`); elsewhere engine/em.py keeps
@@ -44,6 +47,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.distributed import Dist, all_reduce_
 from .conprb import (
     LOG_EPS,
     NEG_INF,
@@ -334,11 +338,14 @@ def _finish_gld(gld_counts) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def run_model_loop(cfg: KernelConfig, data: ModelLoopData,
                    tables0: Dict[str, torch.Tensor], theta0: torch.Tensor,
-                   n_rounds: int, n_reads: int, M: int):
+                   n_rounds: int, n_reads: int, M: int,
+                   dist: Optional[Dist] = None):
     """n_rounds fused model-update EM rounds; returns (theta f32 [M+1],
     suff) where suff holds the LAST round's raw sufficient statistics in
     the full reference shapes (the host refits the float64 model from
-    them, engine/em.py).
+    them, engine/em.py). With `dist`, `data` holds this rank's reads and
+    the counts and statistics are summed over the ranks every round
+    (one all_reduce); theta and suff are then the same on every rank.
 
     The rounds only enqueue device work: no host read, no branch on a
     tensor's value, and the buffers the rounds reuse are allocated once."""
@@ -352,14 +359,13 @@ def run_model_loop(cfg: KernelConfig, data: ModelLoopData,
     pro_tab = torch.zeros(pro_keys + 1, dtype=torch.float32, device=dev)
     npro_tab = torch.zeros(npro_keys + 1, dtype=torch.float32, device=dev)
     denom = torch.empty(n_reads, dtype=torch.float64, device=dev)
-    counts = torch.empty(M + 1, dtype=torch.float64, device=dev)
-    if cfg.paired:
-        gld_acc = torch.empty(gspan, dtype=torch.float64, device=dev)
-    if cfg.est_rspd:
-        rspd_acc = torch.empty(cfg.B, dtype=torch.float64, device=dev)
-    # K3 adds both mates into these f64 tables, read once a round as f32
-    pro_acc = torch.empty(pro_keys, dtype=torch.float64, device=dev)
-    npro_acc = torch.empty(npro_keys, dtype=torch.float64, device=dev)
+    # the round's f64 sums, one buffer (one all_reduce with `dist`):
+    # counts, then K3's profile and noise tables (both mates added, read
+    # once a round as f32), the fragment-length and RSPD histograms
+    sizes = [M + 1, pro_keys, npro_keys, gspan if cfg.paired else 0,
+             cfg.B if cfg.est_rspd else 0]
+    red = torch.empty(sum(sizes), dtype=torch.float64, device=dev)
+    counts, pro_acc, npro_acc, gld_acc, rspd_acc = red.split(sizes)
     pro_cnt = torch.empty(pro_keys, dtype=torch.float32, device=dev)
     npro_cnt = torch.empty(npro_keys, dtype=torch.float32, device=dev)
 
@@ -399,28 +405,32 @@ def run_model_loop(cfg: KernelConfig, data: ModelLoopData,
                           0.0).to(torch.float32)
         frac = w * inv[data.rid]
         frac_noise = w0 * inv
-        counts.zero_().index_add_(0, data.sid, frac.double())
-        counts[0] += frac_noise.sum(dtype=torch.float64) + data.n0
-        theta = (counts / counts.sum()).to(torch.float32)
-
-        # sufficient statistics and the on-device finish
-        pro_acc.zero_()
-        npro_acc.zero_()
+        # expected counts (slot 0 gets no hit: sid >= 1) and the
+        # sufficient statistics, summed over the ranks with `dist`
+        red.zero_()
+        counts.index_add_(0, data.sid, frac.double())
+        counts[0] += frac_noise.sum(dtype=torch.float64)
         scatter_add(pre.flat1, frac, pro_keys, pro_acc)
         scatter_add(pre.nflat1, frac_noise, npro_keys, npro_acc)
         if cfg.paired:
             scatter_add(pre.flat2, frac, pro_keys, pro_acc)
             scatter_add(pre.nflat2, frac_noise, npro_keys, npro_acc)
+            gld_acc.index_add_(0, data.ins_idx, frac.double())
+        if cfg.est_rspd:
+            rspd_acc.index_add_(0, data.rs_b0, (frac * data.rs_w0).double())
+            rspd_acc.index_add_(0, data.rs_b1, (frac * data.rs_w1).double())
+        if dist is not None:
+            all_reduce_(red, dist)
+        counts[0] += data.n0
+        theta = (counts / counts.sum()).to(torch.float32)
+
+        # the on-device finish
         suff["pro"] = pro_cnt.copy_(pro_acc)
         suff["npro"] = npro_cnt.copy_(npro_acc)
         if cfg.paired:
-            suff["gld"] = gld_acc.zero_().index_add_(
-                0, data.ins_idx, frac.double()).to(torch.float32)
+            suff["gld"] = gld_acc.to(torch.float32)
         if cfg.est_rspd:
-            rspd_acc.zero_().index_add_(0, data.rs_b0,
-                                        (frac * data.rs_w0).double())
-            suff["rspd"] = rspd_acc.index_add_(
-                0, data.rs_b1, (frac * data.rs_w1).double()).to(torch.float32)
+            suff["rspd"] = rspd_acc.to(torch.float32)
         t_new = {"log_pro": _finish_profile(suff["pro"]),
                  "log_npro": _finish_npro(cfg, suff["npro"], data.npro_c,
                                           t["log_npro"])}

@@ -20,11 +20,15 @@ does: it enqueues SEGMENT rounds (M-step and stop count included) into
 buffers allocated once per loop, then reads the segment's stop counts
 with one host read and takes the first round at which the reference rule
 stops; rounds computed past it are discarded.
+
+A read-sharded round (parallel/fast_sharded.py) is the same round cut in
+two around the sum over ranks: `theta_partial` (each rank's reads) and
+`theta_finish` (counts, M-step and stop count on the summed partials).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -98,43 +102,63 @@ def n_unconverged(theta_new: torch.Tensor, theta: torch.Tensor
     return (change >= STOP_CRITERIA).sum().int()
 
 
+def theta_partial_plain(theta: torch.Tensor, data: ThetaData
+                        ) -> torch.Tensor:
+    """Plain version of K1's partial round over `data`'s reads: f64
+    [M+2], contrib_m = sum_{hits h of m} cps_h * inv_{read of h} in
+    [:M+1] (slot 0 unused) and the noise sum in [M+1]."""
+    _w, w0, inv = _weights(theta, data)
+    red = torch.zeros(data.M + 2, dtype=torch.float64, device=theta.device)
+    red.index_add_(0, data.sid.long(), (data.cps * inv[data.rid]).double())
+    red[data.M + 1] = (w0 * inv).double().sum()
+    return red
+
+
+def theta_finish_plain(theta: torch.Tensor, red: torch.Tensor, n0: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K1's finish on the partial sums `red` (f64 [M+2],
+    summed over the ranks): (theta_new, counts, stop count) as
+    theta_round_plain returns them."""
+    M1 = theta.shape[0]
+    c = red[:M1] * theta.double()
+    c[0] = red[M1] + n0
+    theta_new = (c / c.sum()).to(torch.float32)
+    return theta_new, c, n_unconverged(theta_new, theta)
+
+
 def theta_round_plain(theta: torch.Tensor, data: ThetaData
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1, one whole round: (theta_new f32 [M+1],
     counts f64 [M+1] with counts[0] = noise + n0, stop count int32)."""
-    _w, w0, inv = _weights(theta, data)
-    u = data.cps * inv[data.rid]
-    contrib = torch.zeros(data.M + 1, dtype=torch.float64,
-                          device=theta.device)
-    contrib.index_add_(0, data.sid.long(), u.double())
-    c = contrib * theta.double()
-    c[0] = (w0 * inv).double().sum() + data.n0
-    theta_new = (c / c.sum()).to(torch.float32)
-    return theta_new, c, n_unconverged(theta_new, theta)
+    return theta_finish_plain(theta, theta_partial_plain(theta, data),
+                              data.n0)
 
 
 class RoundState(NamedTuple):
     """Device buffers of a run of rounds, allocated once and reused by
     every round: round i reads ring[i] and writes ring[i+1], counts and
-    tot[i]."""
+    tot[i]. contrib and acc are views of one f64 buffer, so that the
+    partial sums of a sharded round, [contrib | acc[0]] = `reduced`, are
+    one contiguous [M+2] for one all_reduce."""
 
     ring: torch.Tensor  # [S+1, M+1] f32 theta ring
     counts: torch.Tensor  # [M+1] f64, the last round's counts
     tot: torch.Tensor  # [S] int32 stop counts
     contrib: torch.Tensor  # [M+1] f64 kernel scratch, kept zero
     acc: torch.Tensor  # [2] f64 kernel scratch (noise sum, total)
+    reduced: torch.Tensor  # [M+2] f64 view: contrib, then acc[0]
 
 
 def round_state(data: ThetaData, segment: int,
                 device: torch.device) -> RoundState:
     M1 = data.M + 1
+    scratch = torch.zeros(M1 + 2, dtype=torch.float64, device=device)
     return RoundState(
         ring=torch.empty((segment + 1, M1), dtype=torch.float32,
                          device=device),
         counts=torch.empty(M1, dtype=torch.float64, device=device),
         tot=torch.empty(segment, dtype=torch.int32, device=device),
-        contrib=torch.zeros(M1, dtype=torch.float64, device=device),
-        acc=torch.zeros(2, dtype=torch.float64, device=device))
+        contrib=scratch[:M1], acc=scratch[M1:], reduced=scratch[:M1 + 1])
 
 
 def theta_round(state: RoundState, data: ThetaData, n_rounds: int = 1
@@ -158,13 +182,7 @@ def theta_round(state: RoundState, data: ThetaData, n_rounds: int = 1
         return
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    for t in (data.sid, data.rid, data.cps, data.ncs, data.read_offsets,
-              *state):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("theta-round inputs must be contiguous, on one "
-                             "device")
-    if data.sid.dtype != torch.int32 or data.rid.dtype != torch.int32:
-        raise ValueError("sid and rid must be int32")
+    _check_cuda_round(state, data)
     _build.check(_build.lib().rsem_theta_rounds(
         data.sid.data_ptr(), data.rid.data_ptr(), data.cps.data_ptr(),
         data.ncs.data_ptr(), data.read_offsets.data_ptr(),
@@ -176,6 +194,68 @@ def theta_round(state: RoundState, data: ThetaData, n_rounds: int = 1
 
 
 theta_round.launches = 0
+
+
+def _check_cuda_round(state: RoundState, data: ThetaData) -> None:
+    dev = state.ring.device
+    for t in (data.sid, data.rid, data.cps, data.ncs, data.read_offsets,
+              *state):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("theta-round inputs must be contiguous, on one "
+                             "device")
+    if data.sid.dtype != torch.int32 or data.rid.dtype != torch.int32:
+        raise ValueError("sid and rid must be int32")
+
+
+def theta_partial(state: RoundState, data: ThetaData, i: int) -> None:
+    """K1's first kernel for round i on `data`'s reads (a rank's): adds
+    the partial sums into state.reduced (left zero by the last finish) and
+    zeroes the total and tot[i]. CPU tensors run theta_partial_plain."""
+    dev = state.ring.device
+    if dev.type == "cpu":
+        state.reduced.add_(theta_partial_plain(state.ring[i], data))
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_cuda_round(state, data)
+    _build.check(_build.lib().rsem_theta_partial(
+        data.sid.data_ptr(), data.rid.data_ptr(), data.cps.data_ptr(),
+        data.ncs.data_ptr(), data.read_offsets.data_ptr(),
+        data.ncs.shape[0], state.ring[i].data_ptr(),
+        state.contrib.data_ptr(), state.acc.data_ptr(),
+        state.tot[i].data_ptr(), _build.stream_of(state.ring)),
+        "theta_partial")
+    theta_partial.launches += 1
+
+
+theta_partial.launches = 0
+
+
+def theta_finish(state: RoundState, data: ThetaData, i: int) -> None:
+    """K1's counts and M-step kernels for round i on the summed
+    state.reduced: writes ring[i+1], counts and tot[i], and leaves
+    state.reduced zero. CPU tensors run theta_finish_plain."""
+    dev = state.ring.device
+    if dev.type == "cpu":
+        t, c, n = theta_finish_plain(state.ring[i], state.reduced, data.n0)
+        state.ring[i + 1] = t
+        state.counts.copy_(c)
+        state.tot[i] = n
+        state.reduced.zero_()
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_cuda_round(state, data)
+    _build.check(_build.lib().rsem_theta_finish(
+        data.M + 1, data.n0, state.ring[i].data_ptr(),
+        state.ring[i + 1].data_ptr(), state.counts.data_ptr(),
+        state.tot[i].data_ptr(), state.contrib.data_ptr(),
+        state.acc.data_ptr(), _build.stream_of(state.ring)),
+        "theta_finish")
+    theta_finish.launches += 1
+
+
+theta_finish.launches = 0
 
 
 def counts(theta: torch.Tensor, data: ThetaData) -> torch.Tensor:
@@ -213,11 +293,15 @@ def _first_stop(rounds: int, tot: List[int], min_round: int,
 
 def run_theta_loop(theta0: torch.Tensor, data: ThetaData,
                    min_round: int = MIN_ROUND, max_round: int = MAX_ROUND,
-                   start_round: int = 0) -> Tuple[torch.Tensor, int]:
+                   start_round: int = 0,
+                   rounds_fn: Callable[[RoundState, ThetaData, int], None]
+                   = theta_round) -> Tuple[torch.Tensor, int]:
     """The reference's convergence rule (EM.cpp:53-55,407-416): at least
     min_round and at most max_round rounds in total, stopping at the first
     round after which every theta >= THETA_CUT moved by < STOP_CRITERIA.
-    Rounds run SEGMENT at a time, one host read per segment."""
+    Rounds run SEGMENT at a time, one host read per segment; rounds_fn
+    enqueues n rounds into the state (theta_round; the read-sharded loop
+    passes its own)."""
     theta = theta0.to(torch.float32)
     rounds = start_round
     if rounds >= min_round and rounds >= max_round:
@@ -226,7 +310,7 @@ def run_theta_loop(theta0: torch.Tensor, data: ThetaData,
     state.ring[0] = theta
     while True:
         n = _segment_length(rounds, min_round, max_round, SEGMENT)
-        theta_round(state, data, n)
+        rounds_fn(state, data, n)
         stop = _first_stop(rounds, state.tot[:n].tolist(), min_round,
                            max_round)
         if stop >= 0:

@@ -13,7 +13,15 @@ sample_name.temp/ as the reference does. With --run-pRSEM the uniform-prior
 posterior feeds pRSEM's prior fit on the host (prsem/), and a second Gibbs
 run on the device with the learned pseudo-counts gives the final PME columns.
 
-Not ported yet: the multi-device mesh of the posterior stages.
+Several processes: with the RSEM_TPU_* variables set (or under torchrun,
+parallel/distributed.py) every process joins the process group at entry,
+parses the whole input, and passes the group to the EM (reads sharded over
+the ranks), to both Gibbs runs (chains split where they tile the ranks)
+and to CI (count vectors, then transcript columns split); every rank then
+holds the same results. Only rank 0 writes files (tables, .stat, .temp,
+BAMs, .time) and runs the aligner, the input sort and pRSEM's prior fit,
+whose results the others receive; the JAX package lets every process
+write the same files.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from ..io.results import (
 from ..io.sam import finalize_cnt
 from ..io.tbam2gbam import tbam2gbam
 from ..model import GenerativeModel, ModelSpec
+from ..parallel.distributed import maybe_initialize, on_root
 from ..refprep.reference import Reference
 from ..refprep.transcripts import GroupInfo, Transcripts
 from ..utils.device import DeviceLike, resolve_device
@@ -204,6 +213,11 @@ def _learn_prior(cfg: ExpressionConfig, ts, ref, em, gres,
     )
 
 
+def _prior_of(pres):
+    """What the Gibbs rerun needs of pRSEM's fit: (informative, prior)."""
+    return pres.informative, pres.prior
+
+
 def _pme_columns(gres, gi, sid2g: np.ndarray):
     """The PME columns of an isoform table (not allele-specific) and of the
     gene table, and the genes' PME TPM."""
@@ -219,6 +233,30 @@ def _pme_columns(gres, gi, sid2g: np.ndarray):
     return iso, gene, g_tpm
 
 
+def _write_tables(sample_name, ts, ta, gt, gi, tlens, em, gl, tl, allele,
+                  append_names, iso_extra, gene_extra, allele_extra):
+    """The results tables: isoforms (alleles and transcripts for an
+    allele-specific reference) and genes."""
+    if allele:
+        write_allele_results(
+            f"{sample_name}.alleles.results", ts, tlens, em.eel, em.counts,
+            em.tpm, em.fpkm, tl.isopct, gl.isopct, append_names,
+            allele_extra,
+        )
+        write_transcript_results_allele(
+            f"{sample_name}.isoforms.results", ts, ta, gt, tl,
+            within_gene_pct(gt, tl.tpm, gl.tpm), append_names, iso_extra,
+        )
+    else:
+        write_isoform_results(
+            f"{sample_name}.isoforms.results", ts, tlens, em.eel, em.counts,
+            em.tpm, em.fpkm, gl.isopct, append_names, iso_extra,
+        )
+    write_gene_results(
+        f"{sample_name}.genes.results", ts, gi, gl, append_names, gene_extra,
+    )
+
+
 def calculate_expression(
     alignments: str,
     reference_name: str,
@@ -228,24 +266,31 @@ def calculate_expression(
 ) -> ExpressionResult:
     """alignments: SAM/BAM of transcript alignments (running an aligner is
     `main`'s). Runs the EM (and Gibbs and CI when asked for) on CUDA unless
-    device="cpu" is given."""
-    cfg = cfg or ExpressionConfig()
-    dev = resolve_device(device)
-    t_start = time.time()
+    device="cpu" is given; joins the process group the environment asks
+    for (the module docstring)."""
     from ..utils.timing import StageTimer, maybe_profile
 
+    cfg = cfg or ExpressionConfig()
+    t_start = time.time()
     timer = StageTimer()
+    with timer.stage("process-group", headline=False):
+        dist = maybe_initialize(device)
+    dev = dist.device if dist is not None else resolve_device(device)
+    writer = dist is None or dist.root  # the one process that writes
+    quiet = cfg.quiet or not writer
     sample_token = os.path.basename(sample_name)
     temp_dir = cfg.temporary_folder or f"{sample_name}.temp"
     stat_dir = f"{sample_name}.stat"
-    os.makedirs(temp_dir, exist_ok=True)
-    os.makedirs(stat_dir, exist_ok=True)
+    if writer:
+        os.makedirs(temp_dir, exist_ok=True)
+        os.makedirs(stat_dir, exist_ok=True)
     imd = os.path.join(temp_dir, sample_token)
     stat = os.path.join(stat_dir, sample_token)
 
     # ---- reference ----
     # (the stages the JAX driver does not time stay out of the .time
-    # file's headline: load-reference, intermediate-files, tables, pRSEM's)
+    # file's headline: process-group, load-reference, intermediate-files,
+    # tables, pRSEM's)
     with timer.stage("load-reference", headline=False):
         ref = Reference.load_seq(f"{reference_name}.seq")
         ts = Transcripts.read_ti(f"{reference_name}.ti")
@@ -276,13 +321,15 @@ def calculate_expression(
         seed_len=cfg.seed_length,
         has_polya=ref.has_polya,
     )
-    spec.write_mparams(f"{imd}.mparams")
+    if writer:
+        spec.write_mparams(f"{imd}.mparams")
 
     # ---- optional input name-sort (rsem-calculate-expression:567-575) ----
     if cfg.sort_bam_by_read_name:
         with timer.stage("sort-by-read-name"):
             sorted_inp = f"{imd}.sorted.bam"
-            sort_bam(alignments, sorted_inp, by="name", keep_pairs=True)
+            on_root(lambda: sort_bam(alignments, sorted_inp, by="name",
+                                     keep_pairs=True), dist)
         alignments = sorted_inp
 
     # ---- parse alignments (rsem-parse-alignments) ----
@@ -293,25 +340,28 @@ def calculate_expression(
         )
     sid2gid = np.concatenate([[0], gi.gids_of(np.arange(1, ts.M + 1))])
     finalize_cnt(bundle, sid2gid)
-    bundle.cnt.write(f"{stat}.cnt")
-    with open(f"{imd}.omit", "w") as f:
-        for sid in bundle.omit:
-            f.write(f"{sid}\n")
+    if writer:
+        bundle.cnt.write(f"{stat}.cnt")
+        with open(f"{imd}.omit", "w") as f:
+            for sid in bundle.omit:
+                f.write(f"{sid}\n")
     if bundle.cnt.N1 == 0:
         raise RuntimeError("No alignable reads; nothing to estimate.")
 
     # ---- EM ----
     need_posteriors = ((not cfg.no_bam_output) or cfg.keep_intermediate_files
                        or posterior)
-    with timer.stage("em"), maybe_profile(cfg.profile_dir):
+    with timer.stage("em"), maybe_profile(
+            cfg.profile_dir if writer else None):
         model = GenerativeModel(spec, ref)
         model.estimate_from_stats(bundle.stats)
-        em = run_em(model, ref, bundle, EMConfig(verbose=not cfg.quiet),
-                    need_posteriors=need_posteriors, device=dev)
+        em = run_em(model, ref, bundle, EMConfig(verbose=not quiet),
+                    need_posteriors=need_posteriors, device=dev, dist=dist)
 
-    model.write(f"{stat}.model")
-    write_theta_file(f"{stat}.theta", em.theta_raw, em.theta)
-    if cfg.keep_intermediate_files:
+    if writer:
+        model.write(f"{stat}.model")
+        write_theta_file(f"{stat}.theta", em.theta_raw, em.theta)
+    if cfg.keep_intermediate_files and writer:
         # stage-restart surface (EM.cpp:435-457): final-model conditional
         # probabilities, consumable by rsem-run-gibbs
         from ..io.ofg import write_ofg
@@ -345,9 +395,9 @@ def calculate_expression(
             gres = run_gibbs(
                 bundle.hits, em.log_conprb, em.log_ncp, ref.M, bundle.cnt.N0,
                 em.eel, model.mw, gi, gcfg, omit=bundle.omit, device=dev,
-                ta=ta,
+                ta=ta, dist=dist,
             )
-        if cfg.keep_intermediate_files:
+        if cfg.keep_intermediate_files and writer:
             from ..io.ofg import write_countvectors
 
             # Gibbs.cpp:255-262 (one file; the reference writes one per
@@ -390,7 +440,7 @@ def calculate_expression(
         )
         with timer.stage("ci"):
             cires = run_ci(gres.countvectors, em.eel, model.mw, gi, cicfg,
-                           device=dev, ta=ta)
+                           device=dev, ta=ta, dist=dist)
 
         def ci_cols(tpm_b, fpkm_b):
             return (ISO_TITLE_CI, np.stack(
@@ -405,61 +455,46 @@ def calculate_expression(
         gene_extra.append(ci_cols(cires.gene_tpm, cires.gene_fpkm))
 
     # ---- final tables ----
-    with timer.stage("tables", headline=False):
-        if allele:
-            write_allele_results(
-                f"{sample_name}.alleles.results", ts, tlens, em.eel,
-                em.counts, em.tpm, em.fpkm, tl.isopct, gl.isopct,
-                cfg.append_names, allele_extra,
-            )
-            write_transcript_results_allele(
-                f"{sample_name}.isoforms.results", ts, ta, gt, tl,
-                within_gene_pct(gt, tl.tpm, gl.tpm), cfg.append_names,
-                iso_extra,
-            )
-        else:
-            write_isoform_results(
-                f"{sample_name}.isoforms.results", ts, tlens, em.eel,
-                em.counts, em.tpm, em.fpkm, gl.isopct, cfg.append_names,
-                iso_extra,
-            )
-        write_gene_results(
-            f"{sample_name}.genes.results", ts, gi, gl, cfg.append_names,
-            gene_extra,
-        )
+    if writer:
+        with timer.stage("tables", headline=False):
+            _write_tables(sample_name, ts, ta, gt, gi, tlens, em, gl, tl,
+                          allele, cfg.append_names, iso_extra, gene_extra,
+                          allele_extra)
 
     # ---- pRSEM: ChIP-seq-informed prior + Gibbs rerun on the device ----
     # (rsem-calculate-expression:743-811; pRSEM/prsem-calculate-expression)
     if cfg.run_prsem:
         with timer.stage("prsem-prior", headline=False):
-            pres = _learn_prior(cfg, ts, ref, em, gres, reference_name, imd,
-                                stat)
-        if pres.informative:
+            informative, prior = on_root(lambda: _prior_of(_learn_prior(
+                cfg, ts, ref, em, gres, reference_name, imd, stat)), dist)
+        if informative:
             # the uniform-prior tables become the *_uniform_prior_1 artifacts
-            for kind in ("isoforms", "genes"):
-                os.replace(f"{sample_name}.{kind}.results",
-                           f"{stat}_uniform_prior_1.{kind}.results")
+            if writer:
+                for kind in ("isoforms", "genes"):
+                    os.replace(f"{sample_name}.{kind}.results",
+                               f"{stat}_uniform_prior_1.{kind}.results")
             with timer.stage("gibbs-prior", headline=False):
                 gres = run_gibbs(
                     bundle.hits, em.log_conprb, em.log_ncp, ref.M,
                     bundle.cnt.N0, em.eel, model.mw, gi, gcfg,
-                    omit=bundle.omit, prior=pres.prior, device=dev)
+                    omit=bundle.omit, prior=prior, device=dev, dist=dist)
             # pRSEM's results: the EM columns and the prior-informed PME
             # columns only (collectResults over head-8/tail-5 of iso_res,
             # rsem-calculate-expression:789-796)
             iso_pme, gene_pme, _ = _pme_columns(gres, gi, sid2g)
-            with timer.stage("tables", headline=False):
-                write_isoform_results(
-                    f"{sample_name}.isoforms.results", ts, tlens, em.eel,
-                    em.counts, em.tpm, em.fpkm, gl.isopct, cfg.append_names,
-                    [iso_pme])
-                write_gene_results(
-                    f"{sample_name}.genes.results", ts, gi, gl,
-                    cfg.append_names, [gene_pme])
+            if writer:
+                with timer.stage("tables", headline=False):
+                    write_isoform_results(
+                        f"{sample_name}.isoforms.results", ts, tlens, em.eel,
+                        em.counts, em.tpm, em.fpkm, gl.isopct,
+                        cfg.append_names, [iso_pme])
+                    write_gene_results(
+                        f"{sample_name}.genes.results", ts, gi, gl,
+                        cfg.append_names, [gene_pme])
 
     # ---- posterior-weighted BAM output (rsem-calculate-expression:645-674);
     # the stages split what the JAX driver's .time calls bam-output
-    if not cfg.no_bam_output:
+    if not cfg.no_bam_output and writer:
         bam_path = f"{sample_name}.transcript.bam"
         with timer.stage("bam-output"):
             write_transcript_bam(
@@ -478,12 +513,13 @@ def calculate_expression(
                 for src, dst in bams:
                     sort_bam(src, dst, by="coordinate", build_index=True)
 
-    if not cfg.keep_intermediate_files and cfg.temporary_folder is None:
+    if writer and not cfg.keep_intermediate_files and \
+            cfg.temporary_folder is None:
         shutil.rmtree(temp_dir, ignore_errors=True)
-    if cfg.record_time:
+    if cfg.record_time and writer:
         timer.write_time_file(f"{sample_name}.time",
                               aligning=cfg.aligning_seconds)
-    if not cfg.quiet:
+    if not quiet:
         print(
             f"calculate_expression finished in {time.time() - t_start:.1f}s "
             f"({em.rounds} EM rounds, device {dev}). Stage breakdown:"
@@ -725,16 +761,21 @@ def main(argv=None) -> int:
         profile_dir=args.profile_dir,
     )
     if input_file is None:
-        # run the external aligner (rsem-calculate-expression:391-565)
+        # run the external aligner (rsem-calculate-expression:391-565),
+        # on rank 0 alone when there are several processes
         temp_dir = args.temporary_folder or f"{sample_name}.temp"
-        os.makedirs(temp_dir, exist_ok=True)
         imd = os.path.join(temp_dir, os.path.basename(sample_name))
         t_align = time.time()
-        input_file = run_alignment(
-            aligner_config(args, cfg.probF), reference_name, sample_name,
-            imd, read_lists[0], read_lists[1],
-            log=(lambda *a: None) if args.quiet else print,
-        )
+
+        def align():
+            os.makedirs(temp_dir, exist_ok=True)
+            return run_alignment(
+                aligner_config(args, cfg.probF), reference_name, sample_name,
+                imd, read_lists[0], read_lists[1],
+                log=(lambda *a: None) if args.quiet else print,
+            )
+
+        input_file = on_root(align, maybe_initialize(device))
         cfg.aligning_seconds = time.time() - t_align
     calculate_expression(input_file, reference_name, sample_name, cfg,
                          device=device)

@@ -14,8 +14,11 @@ model loop against the CPU and under sync debug mode "error", run_em,
 run_gibbs and run_ci on the card against the CPU and the goldens (with an
 allele grouping too), and
 windowed PreIdx: K4 over a window's views, K3 into one accumulator across
-windows, and run_em windowed against unwindowed; and the read simulator on
-the card (counts of a 1M-read draw against theta, same seed same bytes)."""
+windows, and run_em windowed against unwindowed; the read simulator on
+the card (counts of a 1M-read draw against theta, same seed same bytes);
+and the read-sharded pieces: K1 split into its partial and finish around
+the sum over ranks, K5 keyed on a rank's first chain (chain0), and run_em
+with an NCCL group of one against no group."""
 
 import numpy as np
 import pytest
@@ -592,7 +595,7 @@ def test_gibbs_sweep_checks_inputs(dev):
         _build.check(_build.lib().rsem_gibbs_sweep(
             part.sid.data_ptr(), part.cps.data_ptr(), part.ncs.data_ptr(),
             a.data_ptr(), t.data_ptr(), s.data_ptr(), part.n_tiles,
-            part.K.bit_length() - 1, 2, part.n_reads - 1, 21, 1, 0,
+            part.K.bit_length() - 1, 2, part.n_reads - 1, 21, 1, 0, 0,
             _build.stream_of(t)), "gibbs_sweep")
 
 
@@ -677,6 +680,23 @@ def test_run_ci_allele_cuda_matches_cpu(dev):
                     first[single]])
 
 
+def test_ci_group_sums_on_card_equal_cpu(dev):
+    """CI's group sums on the card: the same bits as on the CPU, where
+    each group's members are added one after another from 0, at skewed
+    group sizes and whole or cut at a group boundary."""
+    from rsem_tpu_torch.engine.ci import _segment_sums
+
+    rng = np.random.default_rng(9)
+    sizes = np.minimum(rng.zipf(1.6, 3000), 300)
+    rows = torch.as_tensor(rng.gamma(0.3, 1e3, (int(sizes.sum()), 257)),
+                           dtype=torch.float32)
+    want = _segment_sums(rows, sizes)
+    assert torch.equal(_segment_sums(rows.to(dev), sizes).cpu(), want)
+    lo = int(sizes[:1234].sum())
+    assert torch.equal(_segment_sums(rows[lo:].to(dev), sizes[1234:]).cpu(),
+                       want[1234:])
+
+
 def test_run_ci_cuda_on_reference_countvectors(dev):
     """run_ci on the card, on reference calcCI's count vectors, at the
     tolerances of tests/test_parity_extra.py:169-186."""
@@ -758,3 +778,108 @@ def test_simulate_same_seed_same_bytes_on_card(dev, tmp_path):
 
     a, b, c = run("a", 5), run("b", 5), run("c", 6)
     assert a == b and a != c
+
+
+def test_theta_split_matches_plain(dev):
+    """K1 split for the read-sharded loop: its partial kernel on two read
+    slices adds into one summed buffer (as the ranks' all_reduce would),
+    then its finish, against the plain versions on the CPU (rtol 1e-5,
+    stop count within 2); the finish leaves the buffer zero."""
+    from rsem_tpu_torch.parallel.fast_sharded import partition_reads_by_hits
+
+    rng = np.random.default_rng(21)
+    N, M = 20_000, 500
+    nh = rng.integers(0, 7, N)
+    offs = np.concatenate([[0], np.cumsum(nh)])
+    H = int(offs[-1])
+    sid = rng.integers(1, M + 1, H)
+    cps = rng.random(H)
+    ncs = rng.random(N) * 0.1
+    th = torch.as_tensor(rng.dirichlet(np.ones(M + 1)), dtype=torch.float32)
+
+    def data_of(lo, hi, device):
+        h0, h1 = int(offs[lo]), int(offs[hi])
+        t = lambda x, dt: torch.as_tensor(x, dtype=dt).to(device)  # noqa
+        return theta.ThetaData(
+            t(sid[h0:h1], torch.int32),
+            t(np.repeat(np.arange(hi - lo), nh[lo:hi]), torch.int32),
+            t(cps[h0:h1], torch.float32), t(ncs[lo:hi], torch.float32),
+            t(offs[lo:hi + 1] - h0, torch.int64), M, 4.0)
+
+    cuts = partition_reads_by_hits(offs, 2)
+    slices = list(zip(cuts[:-1], cuts[1:]))
+    state = theta.round_state(data_of(0, N, dev), 1, dev)
+    state.ring[0] = th.to(dev)
+    red = torch.zeros(M + 2, dtype=torch.float64)
+    n0 = theta.theta_partial.launches
+    for lo, hi in slices:
+        theta.theta_partial(state, data_of(lo, hi, dev), 0)
+        red += theta.theta_partial_plain(th, data_of(lo, hi, CPU))
+    torch.testing.assert_close(state.reduced.cpu(), red, rtol=1e-5,
+                               atol=1e-9)
+    theta.theta_finish(state, data_of(0, N, dev), 0)
+    assert theta.theta_partial.launches == n0 + 2
+    t_p, c_p, n_p = theta.theta_finish_plain(th, red, 4.0)
+    torch.testing.assert_close(state.ring[1].cpu(), t_p, rtol=1e-5,
+                               atol=1e-9)
+    torch.testing.assert_close(state.counts.cpu(), c_p, rtol=1e-5, atol=1e-6)
+    assert abs(int(state.tot[0]) - int(n_p)) <= 2
+    assert not bool(state.reduced.any())
+
+
+@pytest.mark.parametrize("chain0", [4, 5])
+def test_gibbs_sweep_chain0_matches_plain(dev, chain0):
+    """K5 on chains chain0.. of 8 (a rank's share): identical to the plain
+    sweep with the same chain0, and to those chains of the 8-chain run."""
+    hits, lcp, lnp = synthetic_gibbs_hits(20_000, 300, seed=chain0,
+                                          max_hits=9)
+    layout = gibbs.build_layout(hits, lcp, lnp, 300, device=dev)
+    base = torch.ones(301)
+    mine = slice(chain0, min(chain0 + 3, 8))
+    a8, t8 = gibbs.init_chains(layout, base, 8, seed=2, device=dev)
+    a_k, t_k = gibbs.init_chains(layout, base, 8, seed=2, device=dev,
+                                 chains=mine)
+    a_p, t_p = [a.cpu() for a in a_k], t_k.cpu()
+    for s in range(3):
+        for pi, part in enumerate(layout.parts):
+            sp = gibbs.part_seed(9, pi)
+            gibbs.sweep_part(a8[pi], t8, part, sp, s)
+            gibbs.sweep_part(a_k[pi], t_k, part, sp, s, chain0=chain0)
+            gibbs.sweep_part_plain(a_p[pi], t_p, part.to(CPU), sp, s,
+                                   chain0)
+    assert torch.equal(t_k.cpu(), t_p)
+    assert torch.equal(t_k, t8[mine])
+    for x, y, z in zip(a_k, a_p, a8):
+        assert torch.equal(x.cpu(), y)
+        assert torch.equal(x, z[mine])
+
+
+def test_run_em_nccl_world_one_matches_no_group(dev):
+    """run_em with an NCCL group of one (the read-sharded path: K1 split
+    around the all_reduce) against run_em without a group: counts, TPM and
+    frac_hit within rtol 1e-5, rounds within 2."""
+    import copy
+    import socket
+
+    from rsem_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    d1 = distributed.init_group(dev, f"tcp://127.0.0.1:{port}", 1, 0)
+    try:
+        assert d1.backend == "nccl"
+        ref, bundle, _spec, model = synthetic_dataset(
+            n_reads=3000, M=80, read_len=36, tx_len=400, paired=False,
+            has_qual=True, mean_extra_hits=1.5, seed=11)
+        n0 = theta.theta_partial.launches
+        g = em.run_em(copy.deepcopy(model), ref, bundle, device=dev, dist=d1)
+        assert theta.theta_partial.launches > n0
+        c = em.run_em(copy.deepcopy(model), ref, bundle, device=dev)
+        assert abs(g.rounds - c.rounds) <= 2
+        np.testing.assert_allclose(g.counts, c.counts, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(g.tpm, c.tpm, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(g.frac_hit, c.frac_hit, rtol=1e-5,
+                                   atol=1e-7)
+    finally:
+        torch.distributed.destroy_process_group()

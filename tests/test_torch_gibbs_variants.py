@@ -117,9 +117,9 @@ def test_run_chains_passes_one_scratch_to_every_sweep(monkeypatch):
     layout, assigns, tab = _chains(N=200, M=20, C=2)
     seen = []
 
-    def record(a, table, part, sp, s, scratch=None):
+    def record(a, table, part, sp, s, scratch=None, chain0=0):
         seen.append(scratch)
-        return gibbs.sweep_part(a, table, part, sp, s, scratch)
+        return gibbs.sweep_part(a, table, part, sp, s, scratch, chain0)
 
     monkeypatch.setattr(engine, "sweep_part", record)
     cfg = engine.GibbsConfig(burnin=2, nsamples=4, gap=1, n_chains=2)
