@@ -211,6 +211,32 @@ non-zero on failure:
     and K5 on its chains (chain0 0 and 4) against their plain versions,
     and counts every kernel's launches. Two ranks share one card: their
     stage times are a correctness run's, not a scaling measurement.
+17. the layout's device cache and the streamed theta loop (17a runs
+    right after phase 5, 17b-c after phase 16). 17a: run_em
+    on the full-width workload, the cache cleared just before its first
+    pass and launch counts zeroed just before and read just after (K1-K4
+    must launch); the cache then holds exactly the layout's bytes; 5 warm
+    passes with the cache and 5 with clear_device_cache() before each, in
+    turns (median, min, max), counts within rtol 1e-5 of the first pass;
+    the upload alone (host clock, median of 3); one profiled pass each
+    way, after a warm-up pass in the same profiler session: host-to-device
+    copies, their device ms and bytes (the chrome trace's), idle share.
+    17b: the streamed loop on
+    phase 3's frozen conprbs in 8 pinned chunks against the resident
+    loop, both at 25 rounds (theta within rtol 1e-5, K1 partial launches
+    25 x 8), one streamed round under torch.cuda.set_sync_debug_mode
+    ("error"), one convergent run each way (rounds printed), ms per round
+    of each (median of 3, in turns). 17c: a real sample's size with frozen
+    conprbs: 40M reads of 1-5 hits (120M hits), M = 200,000, log conprbs
+    drawn as tests/test_scale.py:146-148 draws them; streamed in chunks of
+    at most 256 MiB against the resident loop on the same arrays, 25
+    rounds each (theta within rtol 1e-5); peak device memory of each
+    (the streamed one must stay under two chunk buffers, the RoundState
+    and 16 MiB), ms per round, the streamed host-to-device GB/s against
+    one 1 GiB pinned copy, the seconds to generate and to build and pin
+    the chunks. Every phase that uploads a layout clears the cache at its
+    end: phase 9 plans its windows from free memory, and each of its runs
+    clears it first, so each uploads as before the cache.
 
 K3 is held against its plain version (rtol 1e-5, atol 1e-6) and timed at
 every input above that reaches it (K3Shapes: phase 3's two shapes, the
@@ -224,10 +250,13 @@ the same inputs, in turns; the port never calls it.
 
 The line before `kernels` holds the stage numbers (phases 11-12 under
 `simulate`, 13 under `allele`, 14 under `bam_options`, 15 under
-`prsem`, 16 under `group`); each kernel row adds its launches with the
-group of one (`sharded_launches`; K1: its partial half's) and on each
-rank of the group of two (`sharded_world2_launches`); the next-to-last
-line is {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
+`prsem`, 16 under `group`, 17 under `cache` and `streamed`); each kernel
+row adds its launches with the group of one (`sharded_launches`; K1: its
+partial half's), on each rank of the group of two
+(`sharded_world2_launches`) and in 17a's first pass (`cache_launches`);
+K1's row adds its partial's launches in 17b and 17c
+(`streamed_launches`); the next-to-last line is {"kernels": [...]}, the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -511,7 +540,7 @@ def make_workload():
 
 def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate, k3):
     """Hold K1-K4 against their plain versions; returns the kernel rows
-    (launches filled in later)."""
+    (launches filled in later) and K1's frozen log conprbs on the host."""
     import numpy as np
     import torch
 
@@ -620,6 +649,7 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate, k3):
     lnp = conprb.compute_log_noise_conprb(kcfg, m1, None, dm, pre)
     del pre, flat, nflat
     data = theta.scale_conprbs(hd, lcp, lnp, ref.M, 0.0)
+    k1_in = (lcp.cpu().numpy(), lnp.cpu().numpy())  # phase 17b's
     th = torch.as_tensor(
         np.random.default_rng(1).dirichlet(np.ones(ref.M + 1)),
         dtype=torch.float32).to(dev)
@@ -663,7 +693,7 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate, k3):
             f"{r['plain_ms']:.3f} ms, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}), max abs err "
             f"{r['max_abs_err']:.3g}")
-    return rows
+    return rows, k1_in
 
 
 def phase_theta_loop(data, dev, rounds: int = 500, samples: int = 3):
@@ -799,22 +829,41 @@ def phase_main_path(ref, bundle, model0, dev):
     return launches, cold, warm, res.rounds
 
 
-def phase_profile(label, fn):
-    """One warm call of `fn` under torch.profiler: device time by kernel
-    and the device's idle share of the call's wall time. Returns
-    {kernel name: (launches, device us)} and the idle share."""
+def profiled(fn, warmup: bool = False):
+    """(profiler, wall s) of one call of `fn` under torch.profiler, the
+    device synchronised at its end; with `warmup`, after one call in a
+    warm-up step of the same session, whose events are dropped."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    sched = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup \
+        else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def phase_profile(label, fn, prof_wall=None):
+    """One warm call of `fn` under torch.profiler (or the `profiled`
+    result given): device time by kernel and the device's idle share of
+    the call's wall time. Returns {kernel name: (launches, device us)}
+    and the idle share."""
+    import torch
+
+    prof, wall = prof_wall or profiled(fn)
+    # a scheduled session's step annotation spans the step on the device
     kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
     if not kern:
         fail("the profiler saw no device activity")
     busy_us = sum(e.device_time for e in kern)
@@ -1440,6 +1489,7 @@ def phase_large(dev, k3, seed: int = 0):
 
     from rsem_tpu_torch.engine import em
     from rsem_tpu_torch.ops import conprb
+    from rsem_tpu_torch.ops.layout import clear_device_cache
     from rsem_tpu_torch.testing import synthetic_arrays_fast
 
     t0 = time.perf_counter()
@@ -1457,6 +1507,7 @@ def phase_large(dev, k3, seed: int = 0):
         f"bytes (torch.cuda.mem_get_info)")
 
     def run(**kw):
+        clear_device_cache()  # each run uploads, so the walls compare
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1526,6 +1577,7 @@ def phase_large(dev, k3, seed: int = 0):
              torch.rand(nflat1.shape[0], generator=g, device=dev),
              kcfg.npro_keys())
     del nflat1, refd, m1, _m2, hd
+    clear_device_cache()
     torch.cuda.empty_cache()
     whole_fit = phase_whole_fit(ref, bundle, kcfg, dev, res.preidx_budget,
                                 free0)
@@ -1594,6 +1646,7 @@ def phase_whole_fit(ref, bundle, kcfg, dev, budget_full: int, free0: int,
     from rsem_tpu_torch.model.generative import GenerativeModel
     from rsem_tpu_torch.model.spec import ModelSpec
     from rsem_tpu_torch.ops import conprb, model_loop
+    from rsem_tpu_torch.ops.layout import clear_device_cache
 
     row = conprb.preidx_row_bytes(kcfg)
     work = em.WORK_BYTES_PER_HIT
@@ -1624,6 +1677,7 @@ def phase_whole_fit(ref, bundle, kcfg, dev, budget_full: int, free0: int,
                 lo, hi = (mid, hi) if fits(wl, mid, t) else (lo, mid - 1)
             sub = prefix_bundle(wl, lo)
             calls.clear()
+            clear_device_cache()
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3295,6 +3349,392 @@ def rank16_main(d: str, coord: str, rank: int) -> int:
     torch.distributed.destroy_process_group()
     return 0
 
+# phase 17c: a real sample's size with frozen conprbs (40M reads, 1-5
+# hits each, the annotation scale of tests/test_scale.py:26), streamed in
+# chunks of at most STREAM_CHUNK_BYTES; rounds of 17b and 17c
+STREAM_READS, STREAM_M = 40_000_000, 200_000
+STREAM_CHUNK_BYTES = 256 * 2**20
+STREAM_ROUNDS = 25
+
+
+def h2d_of(prof) -> tuple:
+    """(host-to-device copies, their device ms, their bytes or None) in a
+    profiler's events; the bytes from its chrome trace's memcpy events."""
+    import torch
+
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "HtoD" in e.name]
+    ms = sum(e.device_time for e in ev) / 1e3
+    nbytes = None
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    got = [e["args"]["bytes"] for e in trace.get("traceEvents", [])
+           if "HtoD" in str(e.get("name", "")) and "bytes" in e.get(
+               "args", {})]
+    if got:
+        nbytes = int(sum(got))
+    return len(ev), ms, nbytes
+
+
+def phase_cache(ref, bundle, model0, dev):
+    """17a: run_em on the full-width workload with the layout's device
+    cache and with the cache cleared before each pass, in turns. Returns
+    (launches of the first pass, a summary)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.engine import em
+    from rsem_tpu_torch.engine.em import EMConfig, run_em
+    from rsem_tpu_torch.ops.layout import (clear_device_cache,
+                                           device_cache_bytes)
+
+    def run():
+        return run_em(copy.deepcopy(model0), ref, bundle, EMConfig(),
+                      need_posteriors=False, device=dev)
+
+    def cleared():
+        clear_device_cache()
+        return run()
+
+    wrappers = kernel_wrappers()
+    del wrappers["sweep_part"]
+    clear_device_cache()
+    for fn in wrappers.values():
+        fn.launches = 0
+    first = run()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"17a: kernel {k} was not launched by run_em")
+    cached = device_cache_bytes()
+    want = layout_bytes(ref, bundle)
+    if cached != want:
+        fail(f"17a: the cache holds {cached} bytes, the layout is {want}")
+    walls = {"cached": [], "cleared": []}
+    errs = {}
+    for i in range(WARM_PASSES):
+        for mode in (("cached", "cleared") if i % 2 == 0
+                     else ("cleared", "cached")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = run() if mode == "cached" else cleared()
+            walls[mode].append(time.perf_counter() - t0)
+            errs[mode] = max(errs.get(mode, 0.0), agree(
+                r.counts, first.counts, 1e-5, 1e-6, f"17a counts ({mode})"))
+            if r.rounds != first.rounds:
+                fail(f"17a: a pass ({mode}) took {r.rounds} rounds, the "
+                     f"first {first.rounds}")
+    out = {"cached_bytes": cached, "first_pass_launches": launches,
+           "max_abs_err_counts": errs, "rounds": first.rounds}
+    for mode, w in walls.items():
+        out[f"{mode}_warm_s"] = w
+        log(f"17a run_em, cache {mode}: warm median "
+            f"{statistics.median(w):.4f} s min {min(w):.4f} max "
+            f"{max(w):.4f} over {len(w)} passes (in turns); counts max abs "
+            f"err {errs[mode]:.3g} (rtol 1e-5)")
+    # the upload alone, host clock around a synchronised call
+    up = []
+    for _ in range(3):
+        clear_device_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        em.upload(ref, bundle, False, dev)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t0) * 1e3)
+    out["upload_ms"] = up
+    log(f"17a: the layout's upload alone {statistics.median(up):.2f} ms "
+        f"(median of 3; {', '.join(f'{u:.2f}' for u in up)}) for "
+        f"{device_cache_bytes()} bytes")
+    # one profiled pass each way, after a warm-up pass in the same session
+    # (without it, run at the script's end, the profiler lost the first
+    # device events of the window)
+    for mode, fn in (("cached", run), ("cleared", cleared)):
+        prof_wall = profiled(fn, warmup=True)
+        _by, idle = phase_profile(f"run_em, cache {mode}", fn, prof_wall)
+        n, ms, nbytes = h2d_of(prof_wall[0])
+        out[f"{mode}_profile"] = {"wall_ms": prof_wall[1] * 1e3,
+                                  "idle_share": idle, "h2d_copies": n,
+                                  "h2d_ms": ms, "h2d_bytes": nbytes}
+        log(f"17a profile, cache {mode}: {n} host-to-device copies, "
+            f"{ms:.3f} ms on the device, {nbytes} bytes; idle share "
+            f"{idle:.3f}")
+        if mode == "cleared" and (nbytes or 0) < cached:
+            log(f"17a warning: the profiler saw {nbytes} bytes copied to "
+                f"the device, under the layout's {cached}")
+    log(f"17a: the cache held {cached} bytes ({cached / 2**20:.1f} MiB, "
+        f"the layout's); first pass launches {launches}")
+    if not np.all(np.isfinite(first.counts)):
+        fail("17a: counts are not finite")
+    clear_device_cache()
+    return launches, out
+
+
+def _stream_walls(runs, samples: int = 3):
+    """Host-clock seconds of each named run (synchronised), in turns."""
+    import torch
+
+    walls = {k: [] for k in runs}
+    names = list(runs)
+    for i in range(samples):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[k]()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    return walls
+
+
+def _launches_of(fn) -> int:
+    """Launches of theta_partial during fn() (the count zeroed before)."""
+    from rsem_tpu_torch.ops import theta
+
+    theta.theta_partial.launches = 0
+    fn()
+    return theta.theta_partial.launches
+
+
+def phase_streamed(bundle, k1_in, M: int, dev):
+    """17b: the streamed theta loop at full width on phase 3's frozen
+    conprbs, 8 chunks, against the resident loop. Returns a summary."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.ops import theta
+    from rsem_tpu_torch.ops.layout import HitsDevice, clear_device_cache
+    from rsem_tpu_torch.parallel.fast_sharded import build_theta_chunks
+
+    lcp, lnp = k1_in
+    data = theta.scale_conprbs(HitsDevice.from_arrays(bundle.hits, dev),
+                               torch.as_tensor(lcp).to(dev),
+                               torch.as_tensor(lnp).to(dev), M, 0.0)
+    t0 = time.perf_counter()
+    chunks, _b, _hb = build_theta_chunks(bundle.hits, lcp, lnp, M, 0.0, 8,
+                                         device=dev)
+    build_s = time.perf_counter() - t0
+    th0 = torch.full((M + 1,), 1.0 / (M + 1), device=dev)
+    # one streamed round with no host sync (after a warm one)
+    feed = theta.ChunkStream(chunks, M, 0.0, dev)
+    state = theta.round_state(feed.data, 1, dev)
+    state.ring[0] = th0
+    feed.rounds(state, 1)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feed.rounds(state, 1)
+    except RuntimeError as exc:
+        fail(f"17b: a streamed round synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    feed.close()
+    torch.cuda.synchronize()
+    del feed, state
+    fixed = dict(min_round=STREAM_ROUNDS, max_round=STREAM_ROUNDS)
+    got = {}
+
+    def streamed(**kw):
+        got["streamed"] = theta.run_theta_loop_streamed(th0, chunks, M, 0.0,
+                                                        device=dev, **kw)
+
+    def resident(**kw):
+        got["resident"] = theta.run_theta_loop(th0, data, **kw)
+
+    launches = _launches_of(lambda: streamed(**fixed))
+    if launches != STREAM_ROUNDS * len(chunks):
+        fail(f"17b: {launches} K1 partial launches, not "
+             f"{STREAM_ROUNDS} x {len(chunks)}")
+    resident(**fixed)
+    (th_s, c_s, r_s), (th_r, r_r) = got["streamed"], got["resident"]
+    if r_s != r_r or r_s != STREAM_ROUNDS:
+        fail(f"17b: {r_s} streamed rounds, {r_r} resident")
+    err = close(th_s, th_r, 1e-5, 1e-9, "17b streamed theta")
+    n = bundle.hits.n_reads
+    if abs(float(c_s.sum()) - n) > 1e-5 * n:
+        fail(f"17b: streamed counts sum to {float(c_s.sum())}, not {n}")
+    walls = _stream_walls({"streamed": lambda: streamed(**fixed),
+                           "resident": lambda: resident(**fixed)})
+    ms = {k: statistics.median(w) * 1e3 / STREAM_ROUNDS
+          for k, w in walls.items()}
+    conv_launches = _launches_of(streamed)
+    resident()
+    r_sc, r_rc = got["streamed"][2], got["resident"][1]
+    th_sc = got["streamed"][0]
+    if not bool(torch.isfinite(th_sc).all()) or abs(
+            float(th_sc.double().sum()) - 1.0) > 1e-4:
+        fail("17b: the convergent streamed theta is not a distribution")
+    nbytes = sum(t.numel() * t.element_size() for c in chunks for t in c
+                 if isinstance(t, torch.Tensor))
+    log(f"17b streamed theta loop, full width (H={data.sid.shape[0]} N={n} "
+        f"M+1={M + 1}), 8 chunks of {nbytes} bytes in all (built and "
+        f"pinned in {build_s:.3f} s): {STREAM_ROUNDS} rounds each way, "
+        f"theta max abs err {err:.3g} (rtol 1e-5); ms per round streamed "
+        f"{ms['streamed']:.4f}, resident {ms['resident']:.4f} (median of 3 "
+        f"in turns); K1 partial launches {launches}; convergent run "
+        f"{r_sc} rounds streamed ({conv_launches} partial launches), "
+        f"{r_rc} resident; a streamed round made no host sync")
+    del data, chunks
+    clear_device_cache()
+    torch.cuda.empty_cache()
+    return {"chunks": 8, "chunk_bytes": nbytes, "build_s": build_s,
+            "rounds": STREAM_ROUNDS, "max_abs_err_theta": err,
+            "ms_per_round": ms, "walls_s": walls, "launches": launches,
+            "convergent_rounds": {"streamed": r_sc, "resident": r_rc},
+            "convergent_launches": conv_launches}
+
+
+def synthetic_theta_csr(n_reads: int, M: int, seed: int = 17):
+    """A frozen-conprb CSR in numpy: 1-5 hits a read (3 on average),
+    uniform transcripts, log conprbs drawn as tests/test_scale.py:146-148
+    draws them. Returns (hits with sid, rid, read_offsets, lcp, lnp)."""
+    import types
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nh = rng.integers(1, 6, size=n_reads, dtype=np.int64)
+    offsets = np.zeros(n_reads + 1, dtype=np.int64)
+    np.cumsum(nh, out=offsets[1:])
+    H = int(offsets[-1])
+    hits = types.SimpleNamespace(
+        sid=rng.integers(1, M + 1, size=H, dtype=np.int32),
+        rid=np.repeat(np.arange(n_reads, dtype=np.int32), nh),
+        read_offsets=offsets, n_reads=n_reads, n_hits=H)
+    return hits, rng.normal(-20, 3, H), rng.normal(-25, 3, n_reads)
+
+
+def pinned_rate(dev, nbytes: int = 2**30, samples: int = 3) -> float:
+    """GB/s of one pinned host-to-device copy of nbytes (CUDA events)."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ts = time_samples(lambda: dst.copy_(src, non_blocking=True),
+                      samples=samples, warm=1)
+    return nbytes / (statistics.median(ts) / 1e3) / 1e9
+
+
+def phase_streamed_real(dev):
+    """17c: the streamed loop at a real sample's size against the resident
+    loop, peak device memory of each. Returns a summary."""
+    import gc
+
+    import torch
+
+    from rsem_tpu_torch.ops import theta
+    from rsem_tpu_torch.parallel.fast_sharded import build_theta_chunks
+
+    t0 = time.perf_counter()
+    hits, lcp, lnp = synthetic_theta_csr(STREAM_READS, STREAM_M)
+    gen_s = time.perf_counter() - t0
+    H, N, M = hits.n_hits, hits.n_reads, STREAM_M
+    whole = 12 * H + 12 * N + 8
+    n_chunks = -(-whole * 21 // 20 // STREAM_CHUNK_BYTES)  # 5% margin
+    t0 = time.perf_counter()
+    chunks, b, hb = build_theta_chunks(hits, lcp, lnp, M, 0.0, n_chunks,
+                                       device=dev)
+    build_s = time.perf_counter() - t0
+    del lcp, lnp
+    sizes = [sum(t.numel() * t.element_size() for t in c
+                 if isinstance(t, torch.Tensor)) for c in chunks]
+    if max(sizes) > STREAM_CHUNK_BYTES:
+        fail(f"17c: a chunk holds {max(sizes)} bytes, over "
+             f"{STREAM_CHUNK_BYTES}")
+    th0 = torch.full((M + 1,), 1.0 / (M + 1), device=dev)
+    fixed = dict(min_round=STREAM_ROUNDS, max_round=STREAM_ROUNDS)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = {}
+
+    def streamed():
+        got["streamed"] = theta.run_theta_loop_streamed(
+            th0, chunks, M, 0.0, device=dev, **fixed)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launches = _launches_of(streamed)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_s = torch.cuda.max_memory_allocated() - base
+    state_bytes = (2 * (M + 1) * 4 + (M + 1) * 8 + 4 + (M + 3) * 8)
+    cap = 2 * max(sizes) + state_bytes + 16 * 2**20
+    if peak_s > cap:
+        fail(f"17c: the streamed loop peaked at {peak_s} device bytes, "
+             f"over two chunk buffers and the RoundState ({cap} with 16 "
+             "MiB for theta, counts and the allocator)")
+    if launches != STREAM_ROUNDS * len(chunks):
+        fail(f"17c: {launches} K1 partial launches, not "
+             f"{STREAM_ROUNDS} x {len(chunks)}")
+    # the resident loop on the same arrays, concatenated on the card; its
+    # peak counts the data from before it was built
+    base = torch.cuda.memory_allocated()
+
+    def cat(name, shifts=None):
+        return torch.cat([getattr(c, name).to(dev) + int(s) if s else
+                          getattr(c, name).to(dev) for c, s in
+                          zip(chunks, shifts if shifts is not None
+                              else [0] * len(chunks))])
+
+    data = theta.ThetaData(
+        sid=cat("sid"), rid=cat("rid", b[:-1]), cps=cat("cps"),
+        ncs=cat("ncs"),
+        read_offsets=torch.cat(
+            [torch.cat([c.read_offsets[:-1].to(dev) + int(h)
+                        for c, h in zip(chunks, hb[:-1])]),
+             torch.tensor([H], dtype=torch.int64, device=dev)]),
+        M=M, n0=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got["resident"] = theta.run_theta_loop(th0, data, **fixed)
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    peak_r = torch.cuda.max_memory_allocated() - base
+    (th_s, c_s, r_s), (th_r, r_r) = got["streamed"], got["resident"]
+    if r_s != r_r or r_s != STREAM_ROUNDS:
+        fail(f"17c: {r_s} streamed rounds, {r_r} resident")
+    err = close(th_s, th_r, 1e-5, 1e-9, "17c streamed theta")
+    if abs(float(c_s.sum()) - N) > 1e-5 * N:
+        fail(f"17c: streamed counts sum to {float(c_s.sum())}, not {N}")
+    resident_bytes = sum(t.numel() * t.element_size() for t in data
+                         if isinstance(t, torch.Tensor))
+    del data
+    torch.cuda.empty_cache()
+    walls = _stream_walls({"streamed": streamed}, samples=2)
+    ms = {"streamed": statistics.median(walls["streamed"] + [wall_s])
+          * 1e3 / STREAM_ROUNDS, "resident": wall_r * 1e3 / STREAM_ROUNDS}
+    rate = sum(sizes) / (ms["streamed"] / 1e3) / 1e9
+    pinned = pinned_rate(dev)
+    log(f"17c streamed theta loop at a real sample's size: N={N} H={H} "
+        f"M+1={M + 1}, {len(chunks)} chunks of at most {max(sizes)} bytes "
+        f"({sum(sizes)} in all; generated in {gen_s:.1f} s, built and "
+        f"pinned in {build_s:.2f} s); {STREAM_ROUNDS} rounds each way, "
+        f"theta max abs err {err:.3g} (rtol 1e-5); peak device memory "
+        f"streamed {peak_s} bytes ({peak_s / 2**30:.3f} GiB), resident "
+        f"{peak_r} ({peak_r / 2**30:.3f} GiB; its ThetaData "
+        f"{resident_bytes}); ms per round streamed {ms['streamed']:.3f} "
+        f"(median of 3), resident {ms['resident']:.4f}; host-to-device "
+        f"{rate:.2f} GB/s streamed against {pinned:.2f} GB/s for one 1 GiB "
+        f"pinned copy; K1 partial launches {launches}")
+    del chunks, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"reads": N, "hits": H, "M": M, "chunks": len(sizes),
+            "max_chunk_bytes": max(sizes), "chunk_bytes": sum(sizes),
+            "generate_s": gen_s, "build_pin_s": build_s,
+            "rounds": STREAM_ROUNDS, "max_abs_err_theta": err,
+            "peak_bytes": {"streamed": peak_s, "resident": peak_r},
+            "resident_data_bytes": resident_bytes,
+            "ms_per_round": ms, "h2d_gb_s": rate,
+            "pinned_copy_gb_s": pinned, "launches": launches}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3319,7 +3759,13 @@ def main(argv=None) -> int:
     k3 = K3Shapes(mem_rate, op_rate,
                   k3_parent(args.k3_parent) if args.k3_parent else None)
     ref, bundle, model = make_workload()
-    rows = phase_kernels(ref, bundle, model, dev, mem_rate, op_rate, k3)
+    rows, k1_in = phase_kernels(ref, bundle, model, dev, mem_rate, op_rate,
+                                k3)
+    # every phase that uploads a layout drops it from the device cache at
+    # its end: later phases plan windows and budgets from free memory
+    from rsem_tpu_torch.ops.layout import clear_device_cache
+
+    clear_device_cache()
     torch.cuda.empty_cache()
     launches, cold, warm, rounds = phase_main_path(ref, bundle, model, dev)
     from rsem_tpu_torch.engine.em import EMConfig, run_em
@@ -3327,23 +3773,33 @@ def main(argv=None) -> int:
     phase_profile("run_em", lambda: run_em(
         copy.deepcopy(model), ref, bundle, EMConfig(),
         need_posteriors=False, device=dev))
+    clear_device_cache()
+    torch.cuda.empty_cache()
+    # phase 17a (the layout's device cache) on the warm workload
+    cache_launches, cache = phase_cache(ref, bundle, model, dev)
     torch.cuda.empty_cache()
     fused_res, fused = phase_fused(ref, bundle, model, dev, k3)
+    clear_device_cache()
     torch.cuda.empty_cache()
     backends = phase_backends(ref, bundle, model, dev, fused_res)
     del fused_res
+    clear_device_cache()
     torch.cuda.empty_cache()
     win_launches, windowed = phase_windowed(ref, bundle, model, dev)
+    clear_device_cache()
     torch.cuda.empty_cache()
     em, _fitted, post_launches, post_secs = phase_posterior(
         ref, bundle, model, dev)
+    clear_device_cache()
     torch.cuda.empty_cache()
     rows.append(phase_k5(ref, bundle, em, dev, mem_rate, op_rate))
     phase_goldens()
     sim_tpm = em.tpm  # phase 11 draws from phase 6's fit
     del em  # the workload stays for phase 16
+    clear_device_cache()
     torch.cuda.empty_cache()
     large_launches, large = phase_large(dev, k3)
+    clear_device_cache()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         ingest = phase_ingest(d)
@@ -3356,11 +3812,13 @@ def main(argv=None) -> int:
     for k, n in allele_launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the allele path")
+    clear_device_cache()
     with tempfile.TemporaryDirectory() as d:
         bam_launches, bam_options = phase_genome_bam(d, k3=k3)
     for k, n in bam_launches.items():
         if n <= 0 and k not in OFF_EM_PATH:
             fail(f"kernel {k} was not launched on the genome-BAM run")
+    clear_device_cache()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         prsem_launches, prsem_k5, prsem = phase_prsem(d, k3=k3)
@@ -3369,14 +3827,21 @@ def main(argv=None) -> int:
                 fail(f"kernel {k} was not launched on the pRSEM run")
         if min(prsem_k5) <= 0:
             fail(f"K5 launches per pRSEM Gibbs run: {prsem_k5}")
+        clear_device_cache()
         torch.cuda.empty_cache()
         # phase 16: the process group (16a in process, 16b two ranks)
         group_launches, group, k1_split = phase_group(
             ref, bundle, model, dev, mem_rate, op_rate, d)
         group["driver"] = phase_group_driver(d)
+        clear_device_cache()
         torch.cuda.empty_cache()
         group["world2"] = phase_group_world2(d)
         torch.distributed.destroy_process_group()
+    clear_device_cache()
+    torch.cuda.empty_cache()
+    # phase 17b-c: the streamed theta loop
+    streamed = {"full_width": phase_streamed(bundle, k1_in, ref.M, dev)}
+    streamed["real_size"] = phase_streamed_real(dev)
     for r in rows:
         # EM kernels: launches of the main path; K5: of the posterior path
         r["launches"] = launches.get(r["name"], post_launches[r["name"]])
@@ -3396,6 +3861,13 @@ def main(argv=None) -> int:
             x["launches"][name] for x in group["world2"]["ranks"]]
         if r["name"] == "theta_round":
             r.update(k1_split)
+            # phase 17: K1's partial, once per chunk and round
+            r["streamed_launches"] = {
+                "full_width": streamed["full_width"]["launches"],
+                "full_width_convergent":
+                    streamed["full_width"]["convergent_launches"],
+                "real_size": streamed["real_size"]["launches"]}
+        r["cache_launches"] = cache_launches.get(r["name"], 0)
         r["kernel_ms"] = r["ms"]
     log(json.dumps({"run_em": {"cold_s": cold, "warm_s": warm,
                                "rounds": rounds},
@@ -3404,7 +3876,8 @@ def main(argv=None) -> int:
                     "large_run": large, "ingest": ingest,
                     "simulate": simulate, "allele": allele,
                     "bam_options": bam_options, "prsem": prsem,
-                    "group": group}))
+                    "group": group, "cache": cache,
+                    "streamed": streamed}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

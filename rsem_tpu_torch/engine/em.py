@@ -194,7 +194,9 @@ def _finish(model, theta, counts, rounds, frac_hit, frac_noise, lcp_np,
 
 def upload(ref, bundle, paired: bool, device: torch.device):
     """Layout upload: (RefDevice, mate-1 ReadsDevice, mate-2 ReadsDevice or
-    None, HitsDevice); paired mates share one width."""
+    None, HitsDevice); paired mates share one width. Served from the
+    layout's device cache (ops/layout.py) where the host objects are
+    unchanged since an earlier call."""
     refd = RefDevice.from_reference(ref, device)
     if paired:
         r1, r2 = bundle.reads.mate1, bundle.reads.mate2
@@ -340,6 +342,9 @@ def _run_em_device(model, ref, bundle, em_cfg: EMConfig,
         bundle, dist.world, dist.rank)
     local = bundle if shard is None else shard.bundle
 
+    # through the layout's device cache: a repeat call on the same host
+    # objects copies nothing. A shard's reads and hits are new slice
+    # objects on every call, so they miss it (and are evicted with them)
     refd, m1, m2, hd = upload(ref, local, spec.paired, device)
     # from all reads: the ranks' tables must have one shape
     kcfg = kernel_config(model, bundle, int(m1.codes.shape[1]))
@@ -454,7 +459,7 @@ def _run_em_hybrid(model, ref, bundle, em_cfg: EMConfig,
             theta = new_theta
     else:
         data = theta_ops.scale_conprbs(
-            HitsDevice.from_arrays(hits, device),
+            HitsDevice.from_arrays(hits, device),  # cached, as upload's
             torch.as_tensor(lcp_np).to(device),
             torch.as_tensor(lnp_np).to(device), M, float(N0))
         theta_t, rounds = theta_ops.run_theta_loop(

@@ -22,6 +22,11 @@ class HitArrays:
     sid >= 1 (0 is the noise isoform and never appears here); dir 0 forward /
     1 reverse; pos is 0-based strand-local (reference: SamParser.h coordinate
     flip); insert_len only for paired data (fragment length), else None.
+
+    Immutable once built: the layout's device cache (ops/layout.py) keeps
+    the device copy of these arrays for as long as the object lives and
+    rebuilds it only when an attribute is replaced or a sampled element
+    changes; an in-place edit of an unsampled element is not detected.
     """
 
     rid: np.ndarray

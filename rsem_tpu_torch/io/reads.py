@@ -52,7 +52,12 @@ def calc_low_quality(
 @dataclass
 class ReadArrays:
     """Single-end reads: codes [N, L] uint8, lens [N], quals [N, L] uint8
-    (Phred codes 0..93; zeros when has_qual is False), lq [N] bool."""
+    (Phred codes 0..93; zeros when has_qual is False), lq [N] bool.
+
+    Immutable once built: the layout's device cache (ops/layout.py) keeps
+    the device copy of these arrays for as long as the object lives and
+    rebuilds it only when an attribute is replaced or a sampled element
+    changes; an in-place edit of an unsampled element is not detected."""
 
     codes: np.ndarray
     lens: np.ndarray

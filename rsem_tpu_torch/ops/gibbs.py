@@ -108,11 +108,12 @@ def scale_conprbs(hits, log_conprb: np.ndarray, log_ncp: np.ndarray):
     nh = np.diff(offs)
     log_conprb = np.asarray(log_conprb, dtype=np.float64)
     log_ncp = np.asarray(log_ncp, dtype=np.float64)
-    if hits.n_hits:
-        read_max = np.maximum.reduceat(log_conprb, offs[:-1])
-        read_max[nh == 0] = -np.inf  # reduceat reads a neighbour there
-    else:
-        read_max = np.full(N, -np.inf)
+    # over the reads with hits only: reduceat would read a neighbour at an
+    # empty read, and refuses the start H of one at the end
+    read_max = np.full(N, -np.inf)
+    full = nh > 0
+    if full.any():
+        read_max[full] = np.maximum.reduceat(log_conprb, offs[:-1][full])
     read_max = np.maximum(read_max, log_ncp)
     safe_max = np.where(np.isfinite(read_max), read_max, 0.0)
     with np.errstate(invalid="ignore", over="ignore"):

@@ -9,16 +9,103 @@ ragged (1..200 alignments per read); on the GPU it stays in CSR form:
               plus the [N+1] read_offsets of the CSR
 
 Unlike the TPU layout there are no padding rows (PyTorch runs eagerly, so
-no shape needs to stay static) and no device cache keyed by host object id:
-each call uploads what it is given.
+no shape needs to stay static).
+
+The device cache. A repeat pass over the same host containers (a library
+caller's second run_em on one bundle) reuses the device tensors of the
+first instead of copying the layout again. Entries are keyed on the
+container's id(), the device and the width, and evicted by a weakref
+finalizer when the container is garbage-collected, as in the JAX package.
+Each entry also keeps a fingerprint of the arrays it was built from: for
+each array the layout reads, the object's identity, its buffer address,
+shape, dtype and strides, and a checksum of a fixed strided sample of at
+most FINGERPRINT_SAMPLE elements. A lookup whose fingerprint differs
+(an attribute replaced, the array reallocated or a sampled element
+edited) rebuilds the entry; it never serves the old tensors. An in-place
+edit of an element outside the sample is not detected: the containers
+are immutable by contract (refprep.Reference, io.ReadArrays,
+io.HitArrays). No entry is made for the CPU, where torch.as_tensor
+already shares the numpy buffer. Cached tensors hold device memory for as
+long as their containers live; clear_device_cache() frees them. Nothing
+in the port writes into a layout's tensors.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import weakref
+import zlib
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+# elements of each array checksummed by the cache's fingerprint
+FINGERPRINT_SAMPLE = 4096
+
+# id(host container) -> {"_wr": weakref, "_fp": fingerprint, key: layout}
+_DEV_CACHE: dict = {}
+
+
+def _array_print(a) -> Optional[tuple]:
+    """(identity, buffer address, shape, dtype, strides, sample checksum)
+    of one host array; None for an absent one."""
+    if a is None:
+        return None
+    x = np.asarray(a)
+    if x.size:
+        idx = np.linspace(0, x.size - 1, min(x.size, FINGERPRINT_SAMPLE)
+                          ).astype(np.int64)
+        crc = zlib.crc32(x.flat[idx].tobytes())
+    else:
+        crc = 0
+    return (id(a), x.__array_interface__["data"][0], x.shape, x.dtype.str,
+            x.strides, crc)
+
+
+def _device_key(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _dev_cached(obj, key: tuple, device, arrays: Sequence,
+                build: Callable[[], tuple]):
+    """The layout `build()` makes of `obj` for (key, device), from the
+    cache when `obj`'s `arrays` still carry the fingerprint taken when it
+    was built; never cached on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return build()
+    k = id(obj)
+    fp = tuple(_array_print(a) for a in arrays)
+    entry = _DEV_CACHE.get(k)
+    if entry is None or entry["_wr"]() is not obj:
+        try:
+            wr = weakref.ref(obj, lambda _, k=k: _DEV_CACHE.pop(k, None))
+        except TypeError:  # not weak-referenceable
+            return build()
+        entry = _DEV_CACHE[k] = {"_wr": wr, "_fp": fp}
+    elif entry["_fp"] != fp:  # changed since: drop every layout of it
+        entry = _DEV_CACHE[k] = {"_wr": entry["_wr"], "_fp": fp}
+    full = key + (_device_key(dev),)
+    if full not in entry:
+        entry[full] = build()
+    return entry[full]
+
+
+def clear_device_cache() -> None:
+    """Drop every cached layout (the device memory is freed once no other
+    reference holds the tensors)."""
+    _DEV_CACHE.clear()
+
+
+def device_cache_bytes() -> int:
+    """Bytes of the tensors the cache holds."""
+    return sum(t.numel() * t.element_size()
+               for entry in list(_DEV_CACHE.values())
+               for k, layout in list(entry.items()) if not isinstance(k, str)
+               for t in layout if isinstance(t, torch.Tensor))
 
 
 class RefDevice(NamedTuple):
@@ -30,17 +117,20 @@ class RefDevice(NamedTuple):
 
     @classmethod
     def from_reference(cls, ref, device: torch.device) -> "RefDevice":
-        """ref: refprep.Reference."""
+        """ref: refprep.Reference (cached per device)."""
         def up(x, dt):
             return torch.as_tensor(np.ascontiguousarray(x)).to(device, dt)
 
-        return cls(
-            codes=up(ref.codes, torch.uint8),
-            offsets=up(ref.offsets, torch.int64),
-            full_len=up(ref.full_len, torch.int32),
-            tot_len=up(ref.tot_len, torch.int32),
-            mask_start=up(ref.mask_start, torch.int32),
-        )
+        return _dev_cached(
+            ref, ("ref",), device, (ref.codes, ref.offsets, ref.full_len,
+                                    ref.tot_len, ref.mask_start),
+            lambda: cls(
+                codes=up(ref.codes, torch.uint8),
+                offsets=up(ref.offsets, torch.int64),
+                full_len=up(ref.full_len, torch.int32),
+                tot_len=up(ref.tot_len, torch.int32),
+                mask_start=up(ref.mask_start, torch.int32),
+            ))
 
 
 class ReadsDevice(NamedTuple):
@@ -53,19 +143,24 @@ class ReadsDevice(NamedTuple):
     def from_arrays(cls, ra, device: torch.device,
                     width: Optional[int] = None) -> "ReadsDevice":
         """ra: io.ReadArrays; width: zero-pad the [N, L] arrays to this many
-        columns (paired mates of different widths share one width)."""
+        columns (paired mates of different widths share one width).
+        Cached per device and width."""
         def up(x, dt):
             t = torch.as_tensor(np.ascontiguousarray(x)).to(device, dt)
             if width is not None and t.dim() == 2 and t.shape[1] < width:
                 t = torch.nn.functional.pad(t, (0, width - t.shape[1]))
             return t.contiguous()
 
-        return cls(
-            codes=up(ra.codes, torch.uint8),
-            lens=up(ra.lens, torch.int32),
-            quals=up(ra.quals, torch.uint8) if ra.quals is not None else None,
-            lq=up(ra.lq, torch.bool),
-        )
+        return _dev_cached(
+            ra, ("reads", width), device, (ra.codes, ra.lens, ra.quals,
+                                           ra.lq),
+            lambda: cls(
+                codes=up(ra.codes, torch.uint8),
+                lens=up(ra.lens, torch.int32),
+                quals=(up(ra.quals, torch.uint8) if ra.quals is not None
+                       else None),
+                lq=up(ra.lq, torch.bool),
+            ))
 
 
 class HitsDevice(NamedTuple):
@@ -86,18 +181,22 @@ class HitsDevice(NamedTuple):
 
     @classmethod
     def from_arrays(cls, ha, device: torch.device) -> "HitsDevice":
+        """ha: io.HitArrays (cached per device)."""
         def up(x, dt):
             return torch.as_tensor(np.ascontiguousarray(x)).to(device, dt)
 
-        return cls(
-            rid=up(ha.rid, torch.int32),
-            sid=up(ha.sid, torch.int32),
-            dir=up(ha.dir, torch.int32),
-            pos=up(ha.pos, torch.int32),
-            insert_len=(up(ha.insert_len, torch.int32)
-                        if ha.insert_len is not None else None),
-            read_offsets=up(ha.read_offsets, torch.int64),
-        )
+        return _dev_cached(
+            ha, ("hits",), device, (ha.rid, ha.sid, ha.dir, ha.pos,
+                                    ha.insert_len, ha.read_offsets),
+            lambda: cls(
+                rid=up(ha.rid, torch.int32),
+                sid=up(ha.sid, torch.int32),
+                dir=up(ha.dir, torch.int32),
+                pos=up(ha.pos, torch.int32),
+                insert_len=(up(ha.insert_len, torch.int32)
+                            if ha.insert_len is not None else None),
+                read_offsets=up(ha.read_offsets, torch.int64),
+            ))
 
 
 class KernelConfig(NamedTuple):

@@ -24,15 +24,20 @@ stops; rounds computed past it are discarded.
 A read-sharded round (parallel/fast_sharded.py) is the same round cut in
 two around the sum over ranks: `theta_partial` (each rank's reads) and
 `theta_finish` (counts, M-step and stop count on the summed partials).
+The streamed loop (`run_theta_loop_streamed`) cuts it the same way over
+chunks of reads that stay in host memory: one partial per chunk, copied
+to the card while the partial before it runs, then one finish.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..constants import MAX_ROUND, MIN_ROUND, STOP_CRITERIA, THETA_CUT
+from ..utils.device import DeviceLike, resolve_device
 from . import _build
 from .layout import HitsDevice
 
@@ -41,6 +46,12 @@ from .layout import HitsDevice
 # SEGMENT - 1 rounds past the stop. Chosen from the 500-round loop on the
 # H100 (chip_smoke.py phase 3 times S = 1, 16, 32 and 64; PERF.md).
 SEGMENT = 32
+
+# Rounds per host read in the streamed loop. A streamed round copies the
+# whole dataset over the host link (tens of ms at a real sample's size),
+# against which one host read per round is negligible; so no round runs
+# past the stop, and the last round's counts are the stop round's.
+STREAM_SEGMENT = 1
 
 
 class ThetaData(NamedTuple):
@@ -295,28 +306,171 @@ def run_theta_loop(theta0: torch.Tensor, data: ThetaData,
                    min_round: int = MIN_ROUND, max_round: int = MAX_ROUND,
                    start_round: int = 0,
                    rounds_fn: Callable[[RoundState, ThetaData, int], None]
-                   = theta_round) -> Tuple[torch.Tensor, int]:
+                   = theta_round, segment: Optional[int] = None,
+                   progress: Optional[Callable[[int, int], None]] = None
+                   ) -> Tuple[torch.Tensor, int]:
     """The reference's convergence rule (EM.cpp:53-55,407-416): at least
     min_round and at most max_round rounds in total, stopping at the first
     round after which every theta >= THETA_CUT moved by < STOP_CRITERIA.
-    Rounds run SEGMENT at a time, one host read per segment; rounds_fn
-    enqueues n rounds into the state (theta_round; the read-sharded loop
-    passes its own)."""
+    Rounds run `segment` (default SEGMENT) at a time, one host read per
+    segment; rounds_fn enqueues n rounds into the state (theta_round; the
+    read-sharded and streamed loops pass their own). progress(round, stop
+    count) is called for every round up to the stop."""
+    segment = segment or SEGMENT
     theta = theta0.to(torch.float32)
     rounds = start_round
     if rounds >= min_round and rounds >= max_round:
         return theta, rounds
-    state = round_state(data, SEGMENT, theta.device)
+    state = round_state(data, segment, theta.device)
     state.ring[0] = theta
     while True:
-        n = _segment_length(rounds, min_round, max_round, SEGMENT)
+        n = _segment_length(rounds, min_round, max_round, segment)
         rounds_fn(state, data, n)
-        stop = _first_stop(rounds, state.tot[:n].tolist(), min_round,
-                           max_round)
+        tot = state.tot[:n].tolist()
+        stop = _first_stop(rounds, tot, min_round, max_round)
+        if progress is not None:
+            for i in range(stop + 1 if stop >= 0 else n):
+                progress(rounds + i + 1, tot[i])
         if stop >= 0:
             return state.ring[stop + 1].clone(), rounds + stop + 1
         rounds += n
         state.ring[0] = state.ring[n]
+
+
+_CHUNK_FIELDS = ("sid", "rid", "cps", "ncs", "read_offsets")
+
+
+class ChunkStream:
+    """The rounds of the streamed loop over host chunks of reads (each a
+    ThetaData with rid and read_offsets local to it). On the card, two
+    device buffers, each the size of the largest chunk, are fed from the
+    pinned chunks on a side stream, in turns: the copy of the next chunk
+    runs while K1's partial reads the current one. Event `copied[b]`
+    orders a partial after the copy into buffer b, event `read[b]` the
+    next copy into b after the partial that read it. On the CPU the plain
+    partial reads the chunks in place. `data` carries M and n0 to the
+    finish."""
+
+    def __init__(self, chunks: Sequence[ThetaData], M: int, n0: float,
+                 dev: torch.device):
+        self.chunks = [c for c in chunks if c.ncs.shape[0] > 0]
+        if not self.chunks:
+            raise ValueError("no chunk holds a read")
+        for c in chunks:
+            if c.M != M:
+                raise ValueError(f"a chunk has M = {c.M}, not {M}")
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        self.data = ThetaData(
+            sid=empty, rid=empty, cps=empty.float(), ncs=empty.float(),
+            read_offsets=torch.zeros(1, dtype=torch.int64, device=dev),
+            M=M, n0=float(n0))
+        self.state: Optional[RoundState] = None  # the last rounds' state
+        self.cuda = dev.type == "cuda"
+        if not self.cuda:
+            return
+        for c in self.chunks:
+            for f in _CHUNK_FIELDS:
+                t = getattr(c, f)
+                if t.device.type != "cpu" or not t.is_pinned():
+                    raise ValueError(
+                        "streamed chunks must be in pinned host memory "
+                        "(parallel.fast_sharded.build_theta_chunks with a "
+                        "CUDA device)")
+        hmax = max(c.sid.shape[0] for c in self.chunks)
+        nmax = max(c.ncs.shape[0] for c in self.chunks)
+        self.bufs = [dict(
+            sid=torch.empty(hmax, dtype=torch.int32, device=dev),
+            rid=torch.empty(hmax, dtype=torch.int32, device=dev),
+            cps=torch.empty(hmax, dtype=torch.float32, device=dev),
+            ncs=torch.empty(nmax, dtype=torch.float32, device=dev),
+            read_offsets=torch.empty(nmax + 1, dtype=torch.int64,
+                                     device=dev)) for _ in range(2)]
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self.read = [torch.cuda.Event(), torch.cuda.Event()]
+        self.main = torch.cuda.current_stream(dev)
+        self.side = torch.cuda.Stream(dev)
+        self.side.wait_stream(self.main)  # the buffers' memory is free
+        self.step = 0  # partials so far; step s reads buffer s % 2
+        self._load(0)
+
+    def _load(self, j: int) -> None:
+        """Copy chunk j into the buffer of partial number self.step."""
+        b, c = self.step % 2, self.chunks[j]
+        self.side.wait_event(self.read[b])
+        with torch.cuda.stream(self.side):
+            for f in _CHUNK_FIELDS:
+                src = getattr(c, f)
+                self.bufs[b][f][:src.shape[0]].copy_(src, non_blocking=True)
+        self.copied[b].record(self.side)
+
+    def _partials(self, state: RoundState, i: int) -> None:
+        if not self.cuda:
+            for c in self.chunks:
+                theta_partial(state, c, i)
+            return
+        k = len(self.chunks)
+        for j, c in enumerate(self.chunks):
+            b = self.step % 2
+            buf = self.bufs[b]
+            h, n = c.sid.shape[0], c.ncs.shape[0]
+            view = ThetaData(sid=buf["sid"][:h], rid=buf["rid"][:h],
+                             cps=buf["cps"][:h], ncs=buf["ncs"][:n],
+                             read_offsets=buf["read_offsets"][:n + 1],
+                             M=c.M, n0=c.n0)
+            self.main.wait_event(self.copied[b])
+            theta_partial(state, view, i)
+            self.read[b].record(self.main)
+            self.step += 1
+            self._load((j + 1) % k)
+
+    def rounds(self, state: RoundState, n: int) -> None:
+        """Enqueue n rounds from state.ring[0]: K1's partial on every
+        chunk, then its finish (no host read)."""
+        for i in range(n):
+            self._partials(state, i)
+            theta_finish(state, self.data, i)
+        self.state = state
+
+    def close(self) -> None:
+        """Order the current stream after the last copy, so the buffers'
+        memory is not reused under it."""
+        if self.cuda:
+            self.main.wait_stream(self.side)
+
+
+def run_theta_loop_streamed(
+        theta0, chunks: Sequence[ThetaData], M: int, n0: float,
+        min_round: int = MIN_ROUND, max_round: int = MAX_ROUND,
+        start_round: int = 0, device: DeviceLike = None,
+        progress: Optional[Callable[[int, int], None]] = None
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Bounded-memory theta loop (counterpart of rsem_tpu/ops/fast_estep.py
+    run_fast_em_loop_streamed; RSEM's bounded-RAM re-streaming of reads,
+    ReadReader.h:21-116): `chunks` are host ThetaData of consecutive reads
+    (parallel.fast_sharded.build_theta_chunks; pinned for a CUDA device),
+    fed through a ChunkStream, so device memory holds at most two chunks
+    and the RoundState whatever the dataset's size. The stop rule is
+    run_theta_loop's, with a host read after every round
+    (STREAM_SEGMENT); progress(round, stop count) is called after each.
+    Returns (theta f32 [M+1], counts f64 [M+1] of the last round with
+    counts[0] including n0, rounds), on the device (CUDA unless
+    device="cpu")."""
+    dev = resolve_device(device)
+    theta = torch.as_tensor(theta0 if isinstance(theta0, torch.Tensor)
+                            else np.asarray(theta0)).to(dev, torch.float32)
+    if theta.shape != (M + 1,):
+        raise ValueError(f"theta0 must have M+1 = {M + 1} entries")
+    feed = ChunkStream(chunks, M, n0, dev)
+    try:
+        theta, rounds = run_theta_loop(
+            theta, feed.data, min_round, max_round, start_round,
+            rounds_fn=lambda st, _d, n: feed.rounds(st, n),
+            segment=STREAM_SEGMENT, progress=progress)
+    finally:
+        feed.close()
+    counts = feed.state.counts.clone() if feed.state is not None else \
+        torch.zeros(M + 1, dtype=torch.float64, device=dev)
+    return theta, counts, rounds
 
 
 def final_fracs(theta: torch.Tensor, data: ThetaData

@@ -11,20 +11,26 @@ kernels on the sums, n0 added once. Every rank then holds the same theta
 and the same stop counts, so all stop at the same round. The loop keeps
 ops/theta.run_theta_loop's segments: no host read inside a segment.
 
-The JAX bucket tiles and the padding of every shard to common shapes were
-there for shard_map; the port has no use for them.
+The same read partition cuts the host-resident chunks of the streamed
+theta loop (build_theta_chunks, ops/theta.run_theta_loop_streamed).
+
+The JAX bucket tiles and the padding of every shard (and chunk) to common
+shapes were there for shard_map and one jit signature; the port has no use
+for them.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..constants import MAX_ROUND, MIN_ROUND
 from ..ops import theta as theta_ops
+from ..ops.gibbs import scale_conprbs
 from ..ops.theta import RoundState, ThetaData
+from ..utils.device import DeviceLike, resolve_device
 from .distributed import Dist, all_reduce_, gather_rows
 
 
@@ -37,6 +43,42 @@ def partition_reads_by_hits(offsets: np.ndarray, n_shards: int) -> np.ndarray:
     cuts = np.searchsorted(offsets[1:], targets, side="left") + 1
     cuts = np.minimum(cuts, n_reads)
     return np.concatenate([[0], cuts, [n_reads]]).astype(np.int64)
+
+
+def build_theta_chunks(
+    hits, log_conprb: np.ndarray, log_ncp: np.ndarray, M: int, n0: float,
+    n_chunks: int, device: DeviceLike = None,
+) -> Tuple[List[ThetaData], np.ndarray, np.ndarray]:
+    """Host chunks of the streamed theta loop (counterpart of
+    rsem_tpu/parallel/fast_sharded.py build_fast_data_chunks): reads cut
+    by partition_reads_by_hits into n_chunks contiguous ranges. Each chunk
+    is a ThetaData of CPU tensors: sid and rid int32 (rid local to the
+    chunk), cps and ncs f32 scaled per read in f64 (ops/gibbs.
+    scale_conprbs), read_offsets int64 from 0. For a CUDA device (the
+    default) the tensors are pinned, which raises where it cannot be
+    done. Returns (chunks, read bounds [n_chunks+1], hit bounds)."""
+    dev = resolve_device(device)
+    offs = np.asarray(hits.read_offsets, dtype=np.int64)
+    bounds = partition_reads_by_hits(offs, n_chunks)
+    hit_bounds = offs[bounds]
+    cps, ncs = scale_conprbs(hits, log_conprb, log_ncp)
+
+    def host(x: np.ndarray, dt) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(x, dtype=dt))
+        return t.pin_memory() if dev.type == "cuda" else t
+
+    chunks = []
+    for lo, hi, hlo, hhi in zip(bounds[:-1], bounds[1:], hit_bounds[:-1],
+                                hit_bounds[1:]):
+        chunks.append(ThetaData(
+            sid=host(hits.sid[hlo:hhi], np.int32),
+            rid=host(np.asarray(hits.rid[hlo:hhi], dtype=np.int64) - lo,
+                     np.int32),
+            cps=host(cps[hlo:hhi], np.float32),
+            ncs=host(ncs[lo:hi], np.float32),
+            read_offsets=host(offs[lo:hi + 1] - hlo, np.int64),
+            M=M, n0=float(n0)))
+    return chunks, bounds, hit_bounds
 
 
 def sharded_rounds(state: RoundState, data: ThetaData, n: int,

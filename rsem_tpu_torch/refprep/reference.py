@@ -58,6 +58,11 @@ class Reference:
       names      transcript names (python list, [M+1], names[0] = "")
       codes      concatenated uint8 base codes (A0 C1 G2 T3 N4), poly(A)
                  included
+
+    Immutable once built: the layout's device cache (ops/layout.py) keeps
+    the device copy of these arrays for as long as the object lives and
+    rebuilds it only when an attribute is replaced or a sampled element
+    changes; an in-place edit of an unsampled element is not detected.
     """
 
     def __init__(self, names: List[str], seqs: List[str], polya_lens: List[int]):

@@ -18,7 +18,10 @@ windows, and run_em windowed against unwindowed; the read simulator on
 the card (counts of a 1M-read draw against theta, same seed same bytes);
 and the read-sharded pieces: K1 split into its partial and finish around
 the sum over ranks, K5 keyed on a rank's first chain (chain0), and run_em
-with an NCCL group of one against no group."""
+with an NCCL group of one against no group; the layout's device cache (the
+same device buffers on a repeat upload, new ones after an edit) and the
+streamed theta loop over pinned host chunks against the resident loop.
+The device cache is cleared after every test."""
 
 import numpy as np
 import pytest
@@ -28,7 +31,8 @@ from rsem_tpu_torch.convert import model_arrays_to_torch
 from rsem_tpu_torch.engine import em
 from rsem_tpu_torch.io.hits import HitArrays
 from rsem_tpu_torch.ops import conprb, gibbs, table, theta
-from rsem_tpu_torch.ops.layout import HitsDevice
+from rsem_tpu_torch.ops.layout import HitsDevice, clear_device_cache
+from rsem_tpu_torch.parallel.fast_sharded import build_theta_chunks
 from rsem_tpu_torch.testing import (
     relabel_layout,
     synthetic_arrays_fast,
@@ -44,7 +48,8 @@ CPU = torch.device("cpu")
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    clear_device_cache()
 
 
 def _idx(rng, rows, cols, size, dev):
@@ -883,3 +888,65 @@ def test_run_em_nccl_world_one_matches_no_group(dev):
                                    atol=1e-7)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def test_cached_upload_keeps_device_buffers(dev):
+    """A repeat upload of the same host objects returns the same device
+    buffers; an in-place edit of a sampled element gives new ones holding
+    the edit; clear_device_cache() drops them."""
+    from rsem_tpu_torch.ops.layout import device_cache_bytes
+
+    ref, bundle, _spec, _model = synthetic_dataset(
+        n_reads=500, M=20, read_len=36, tx_len=300, seed=2)
+    a = em.upload(ref, bundle, False, dev)
+    b = em.upload(ref, bundle, False, dev)
+    for x, y in zip(a, b):
+        if x is not None:
+            for t, u in zip(x, y):
+                if isinstance(t, torch.Tensor):
+                    assert t.data_ptr() == u.data_ptr()
+    assert device_cache_bytes() > 0
+    bundle.hits.pos[0] += 1
+    c = em.upload(ref, bundle, False, dev)
+    assert c[3].pos.data_ptr() != a[3].pos.data_ptr()
+    assert int(c[3].pos[0]) == int(bundle.hits.pos[0])
+    assert c[0].codes.data_ptr() == a[0].codes.data_ptr()  # ref unchanged
+    clear_device_cache()
+    assert device_cache_bytes() == 0
+
+
+def test_streamed_loop_matches_resident_on_card(dev):
+    """The streamed loop over 3 pinned chunks (two device buffers fed on a
+    side stream) against the resident loop on the whole CSR, both at 25
+    rounds: theta within rtol 1e-5 (K1's f64 atomics), 25 x 3 partial
+    launches; the last round's counts as the CPU's streamed loop gives
+    them (rtol 1e-5)."""
+    M = 3000
+    hits, lcp, lnp = _ragged_hits(5000, M, seed=3)
+    chunks, _b, _hb = build_theta_chunks(hits, lcp.numpy(), lnp.numpy(), M,
+                                         5.0, 3, device=dev)
+    assert all(c.sid.is_pinned() and c.cps.is_pinned() for c in chunks)
+    th0 = torch.full((M + 1,), 1.0 / (M + 1), device=dev)
+    n0 = theta.theta_partial.launches
+    th_s, c_s, r_s = theta.run_theta_loop_streamed(
+        th0, chunks, M, 5.0, min_round=25, max_round=25, device=dev)
+    assert theta.theta_partial.launches == n0 + 25 * 3
+    th_r, r_r = theta.run_theta_loop(th0, _data(hits, lcp, lnp, M, dev),
+                                     min_round=25, max_round=25)
+    assert r_s == r_r == 25
+    torch.testing.assert_close(th_s, th_r, rtol=1e-5, atol=1e-9)
+    cpu, _b, _hb = build_theta_chunks(hits, lcp.numpy(), lnp.numpy(), M,
+                                      5.0, 3, device="cpu")
+    _t, c_cpu, _r = theta.run_theta_loop_streamed(
+        th0.cpu(), cpu, M, 5.0, min_round=25, max_round=25, device="cpu")
+    torch.testing.assert_close(c_s.cpu(), c_cpu, rtol=1e-5, atol=1e-6)
+
+
+def test_streamed_loop_refuses_unpinned_chunks(dev):
+    M = 300
+    hits, lcp, lnp = _ragged_hits(500, M, seed=4)
+    chunks, _b, _hb = build_theta_chunks(hits, lcp.numpy(), lnp.numpy(), M,
+                                         5.0, 2, device="cpu")
+    with pytest.raises(ValueError, match="pinned"):
+        theta.run_theta_loop_streamed(torch.full((M + 1,), 1.0 / (M + 1)),
+                                      chunks, M, 5.0, device=dev)
