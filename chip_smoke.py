@@ -63,6 +63,19 @@ non-zero on failure:
     human transcriptome's size); time one sweep of each (>= 5 warm
     samples), us per tile step, and the bound from the bytes this run's
     data moves.
+ 7b. the Gibbs sampler's posterior spread at a real sample's size: 10,000
+    pairs of isoforms with 50 reads each (500,000 reads, 1M alignments,
+    M = 20,000; testing.pair_hits), half with equal conprbs and half with
+    conprb ratio 1.1, no noise slot, whose exact posterior is known
+    (testing.pair_posterior); run_gibbs on the card with 8 chains, burn-in
+    1,000 and 8,000 samples, launch counts zeroed just before and read
+    just after (K5 once per sweep and part, no other kernel). Gates, for
+    each half: pooled SD within 3% of the exact SD, pooled mean within
+    0.03 exact SDs of the exact mean; at most one read of a pair in any
+    tile (logged beside the same statistic for the sorted front-to-back
+    packing of the JAX Pallas layout); K5 identical to its plain version
+    over 3 sweeps on this layout, its ms per sweep (>= 5 warm samples)
+    and bound; the host layout build's seconds.
  8. calculate-expression through the CLI entry point on the golden SAMs
     (tests/goldens/aln.sam.gz; aln_pe.sam.gz with --paired-end
     --estimate-rspd), each through native ingest and the fused model loop
@@ -250,7 +263,9 @@ the same inputs, in turns; the port never calls it.
 
 The line before `kernels` holds the stage numbers (phases 11-12 under
 `simulate`, 13 under `allele`, 14 under `bam_options`, 15 under
-`prsem`, 16 under `group`, 17 under `cache` and `streamed`); each kernel
+`prsem`, 16 under `group`, 17 under `cache` and `streamed`, 7b under
+`spread`, which the K5 row's `spread_launches` and `spread_ms_per_sweep`
+repeat); each kernel
 row adds its launches with the group of one (`sharded_launches`; K1: its
 partial half's), on each rank of the group of two
 (`sharded_world2_launches`) and in 17a's first pass (`cache_launches`);
@@ -287,6 +302,11 @@ WARM_PASSES = 5
 TIMING_SAMPLES = 7
 ISOFORMS_PER_GENE = 4  # gene grouping of the synthetic transcripts
 K5_SWEEPS = 3  # sweeps held against the plain version
+# phase 7b: 10,000 pairs of isoforms, 50 reads each (500,000 reads, 1M
+# alignments), half of conprb ratio 1.1; 8 chains, burn-in 1,000, 8,000
+# samples
+SPREAD_PAIRS, SPREAD_READS, SPREAD_RATIO = 10_000, 50, 1.1
+SPREAD_BURNIN, SPREAD_SAMPLES = 1000, 8000
 # the run at a real sample's size: paired-end 150 bp, ~35M alignments
 LARGE_READS, LARGE_READ_LEN = 14_000_000, 150
 INGEST_READS, INGEST_M = 420_000, 2000  # ~1.04M BAM records
@@ -1245,6 +1265,26 @@ def k5_replay(layout, assigns, tab, seed: int, label: str,
     return kern_sweep, plain_sweep, moved / sweeps, changed / sweeps
 
 
+def k5_bound(layout, C, moved, changed, mem_rate, op_rate):
+    """K5's bound for one sweep of C chains. Bytes: each placed slot's sid
+    and cps and each placed read's ncs once; every chain's assignments
+    read once and the ones that move written; every chain's table entries
+    that the layout touches (its distinct sids and the noise entry) read
+    once and the ones that change written. Operations: ~8 f32 per slot
+    and per read per chain. Returns (ms, by, bytes, distinct sids)."""
+    import torch
+
+    noise = torch.zeros(1, dtype=torch.int32,
+                        device=layout.parts[0].sid.device)
+    n_sids = int(torch.unique(torch.cat(
+        [p.sid for p in layout.parts] + [noise])).numel())
+    nbytes = (layout.n_slots * 8 + layout.n_reads * 4 +
+              C * layout.n_reads * 4 + moved * 4 + C * n_sids * 4 +
+              changed * 4)
+    return bound(nbytes, C * (layout.n_slots + layout.n_reads) * 8,
+                 mem_rate, op_rate) + (nbytes, n_sids)
+
+
 def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
     """K5 against its plain version at full width, K5_SWEEPS sweeps of 8
     chains from one initial state each way: on the posterior path's layout
@@ -1289,21 +1329,6 @@ def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
             f"{k_ms[0] * 1e3 / layout.n_tiles:.2f} us per tile step")
         return k_ms, lambda: plain_sweep(K5_SWEEPS), moved, changed
 
-    def k5_bound(layout, moved, changed):
-        """Bytes of one sweep: each placed slot's sid and cps and each
-        read's ncs once; every chain's assignments read once and the ones
-        that move written; every chain's table entries that the layout
-        touches (its distinct sids and the noise entry) read once and the
-        ones that change written. Operations: ~8 f32 per slot and per read
-        per chain."""
-        n_sids = int(torch.unique(torch.cat(
-            [p.sid for p in layout.parts])).numel()) + 1
-        nbytes = (layout.n_slots * 8 + layout.n_reads * 4 +
-                  C * layout.n_reads * 4 + moved * 4 + C * n_sids * 4 +
-                  changed * 4)
-        return bound(nbytes, C * (layout.n_slots + layout.n_reads) * 8,
-                     mem_rate, op_rate) + (nbytes, n_sids)
-
     layout, assigns, tab = setup(em.log_conprb, em.log_ncp, "EM conprbs")
     k_ms, plain_sweep, moved, changed = hold(layout, assigns, tab,
                                              "EM conprbs")
@@ -1321,8 +1346,10 @@ def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
     big_mix_ms, _p, _m, _c = hold(big_mix[0], mix[1], big_mix[1],
                                   "mixing variant relabelled")
     n_tiles = layout.n_tiles
-    b_ms, b_by, nbytes, n_sids = k5_bound(layout, moved, changed)
-    bl_ms, _by, _nb, _ns = k5_bound(big_layout, big_moved, big_changed)
+    b_ms, b_by, nbytes, n_sids = k5_bound(layout, C, moved, changed,
+                                          mem_rate, op_rate)
+    bl_ms, _by, _nb, _ns = k5_bound(big_layout, C, big_moved, big_changed,
+                                    mem_rate, op_rate)
     log(f"K5: one sweep = {n_tiles} tile steps in sequence per chain; "
         f"{k_ms[0] * 1e3 / n_tiles:.2f} us per tile step at T = {M + 1}, "
         f"{big_ms[0] * 1e3 / n_tiles:.2f} at T = {big.shape[1]}; bound "
@@ -1347,6 +1374,133 @@ def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
         ms_large_table_max=big_ms[2], us_per_tile_large_table=us(big_ms),
         bound_ms_large_table=bl_ms, ms_mixing=mix_ms[0],
         ms_large_table_mixing=big_mix_ms[0], tiles_per_sweep=n_tiles)
+
+
+def sorted_packing_max(hits, log_conprb, reads_per_tile: int) -> int:
+    """The largest number of one `testing.pair_hits` pair's reads in one
+    tile under the packing of the JAX Pallas layout (and of this port's
+    before it dealt reads over tiles): each bucket's reads in the order of
+    their smallest table row (rows of 128 sids; reads spanning 16 rows or
+    more last), tiles filled front to back. For two-hit reads, one bucket
+    of `reads_per_tile` reads a tile."""
+    import numpy as np
+
+    sid = hits.sid.astype(np.int64).reshape(-1, 2)
+    kept = np.isfinite(log_conprb).reshape(-1, 2)
+    rows = np.where(kept, sid >> 7, np.iinfo(np.int64).max)
+    r_min = rows.min(1)
+    wide = (np.where(kept, sid >> 7, -1).max(1) - r_min) >= 16
+    order = np.lexsort((r_min, wide))
+    pair = (sid[order, 0] - 1) // 2
+    tile = np.arange(len(order)) // reads_per_tile
+    return int(np.unique(tile * (pair.max() + 1) + pair,
+                         return_counts=True)[1].max())
+
+
+def phase_spread(dev, mem_rate, op_rate, n_pairs: int = SPREAD_PAIRS,
+                 n: int = SPREAD_READS, burnin: int = SPREAD_BURNIN,
+                 samples: int = SPREAD_SAMPLES):
+    """Phase 7b: the sampler's posterior spread at a real sample's size.
+    SPREAD_PAIRS pairs of isoforms (testing.pair_hits), SPREAD_READS reads
+    each, half with equal conprbs and half with SPREAD_RATIO : 1, no noise
+    slot; run_gibbs on the card (8 chains, burn-in 1,000, 8,000 samples),
+    launch counts zeroed just before and read just after (K5 must launch
+    once per sweep and part). Gates, for each half: the pooled posterior
+    SD (root mean pve_c over the pairs' first members) within 3% of the
+    exact SD and the pooled mean within 0.03 exact SDs of the exact mean
+    (testing.pair_posterior); at most one read of a pair in any tile. K5
+    held against its plain version on this layout; its ms per sweep (on
+    the card). Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
+    from rsem_tpu_torch.ops import gibbs
+    from rsem_tpu_torch.ops.layout import clear_device_cache
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
+    from rsem_tpu_torch.testing import (
+        pair_hits,
+        pair_posterior,
+        pair_tile_max,
+    )
+
+    half = n_pairs // 2
+    hits, lcp, lnp = pair_hits([1.0] * half + [SPREAD_RATIO] * half, n)
+    M = 2 * n_pairs
+    eel, mw = np.full(M + 1, 1000.0), np.ones(M + 1)
+    gi = GroupInfo(np.concatenate([np.arange(1, M + 1, 2), [M + 1]]))
+    C = 8
+    gcfg = GibbsConfig(burnin=burnin, nsamples=samples, n_chains=C, seed=7,
+                       keep_countvectors=False)
+    on_card = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    layout = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
+    build_s = time.perf_counter() - t0
+    most = pair_tile_max(layout)
+    packed = sorted_packing_max(hits, lcp, layout.parts[0].reads_per_tile)
+    log(f"spread: {hits.n_reads} reads, {hits.n_hits} alignments, M = {M};"
+        f" layout {len(layout.parts)} part(s), {layout.n_tiles} tiles per "
+        f"sweep, host build {build_s:.3f} s; at most {most} read(s) of one "
+        f"pair in a tile (the sorted packing: {packed})")
+    if most > 1:
+        fail(f"spread: {most} reads of one pair share a tile")
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    res = run_gibbs(hits, lcp, lnp, M, 0, eel, mw, gi, gcfg, device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    sweeps = gcfg.burnin + gcfg.nsamples // C
+    if on_card and launches["sweep_part"] != sweeps * len(layout.parts):
+        fail(f"spread: K5 launched {launches['sweep_part']} times, not "
+             f"{sweeps * len(layout.parts)}")
+    out = dict(reads=hits.n_reads, alignments=hits.n_hits, M=M,
+               tiles_per_sweep=layout.n_tiles, parts=len(layout.parts),
+               host_build_s=build_s, pair_tile_max=most,
+               sorted_packing_pair_tile_max=packed, run_gibbs_s=wall,
+               launches=launches["sweep_part"], sweeps=sweeps)
+    for name, ratio, first in (("equal", 1.0, slice(1, M // 2, 2)),
+                               ("ratio", SPREAD_RATIO,
+                                slice(M // 2 + 1, M + 1, 2))):
+        mean, sd = pair_posterior(ratio, n)
+        got_sd = float(np.sqrt(res.pve_c[first].mean()))
+        got_mean = float(res.pme_c[first].mean())
+        out[name] = dict(exact_sd=sd, sd=got_sd, sd_ratio=got_sd / sd,
+                         exact_mean=mean, mean=got_mean,
+                         mean_dev_in_sd=(got_mean - mean) / sd)
+        log(f"spread ({name}, r = {ratio}): pooled SD {got_sd:.4f} against "
+            f"exact {sd:.4f} (ratio {got_sd / sd:.4f}); pooled mean "
+            f"{got_mean:.4f} against {mean:.4f} ({(got_mean - mean) / sd:+.4f}"
+            f" SD)")
+        if abs(got_sd / sd - 1.0) > 0.03:
+            fail(f"spread ({name}): pooled SD {got_sd} not within 3% of the "
+                 f"exact {sd}")
+        if abs(got_mean - mean) > 0.03 * sd:
+            fail(f"spread ({name}): pooled mean {got_mean} not within 0.03 "
+                 f"SD of the exact {mean}")
+    base = torch.ones(M + 1)
+    assigns, tab = gibbs.init_chains(layout, base, C, seed=1, device=dev)
+    kern_sweep, _p, moved, changed = k5_replay(layout, assigns, tab, 7,
+                                               "spread")
+    k_ms = time_cuda(lambda: kern_sweep(K5_SWEEPS)) if on_card else (
+        float("nan"),) * 3
+    b_ms, b_by, _nb, _ns = k5_bound(layout, C, moved, changed, mem_rate,
+                                    op_rate)
+    out.update(ms_per_sweep=k_ms[0], ms_per_sweep_min=k_ms[1],
+               ms_per_sweep_max=k_ms[2], bound_ms=b_ms, bound_by=b_by,
+               moved_per_sweep=moved)
+    log(f"spread: K5 identical to its plain version over {K5_SWEEPS} sweeps;"
+        f" {launches['sweep_part']} launches in run_gibbs ({wall:.3f} s); "
+        f"{k_ms[0]:.4f} ms per sweep [{k_ms[1]:.4f}, {k_ms[2]:.4f}] "
+        f"({k_ms[0] * 1e3 / layout.n_tiles:.2f} us per tile step), bound "
+        f"{b_ms:.4f} ms ({b_by}), {moved:.0f} assignments moved per sweep")
+    del res, layout, assigns, tab
+    clear_device_cache()
+    return launches, out
 
 
 def _read_table(path):
@@ -3793,6 +3947,10 @@ def main(argv=None) -> int:
     clear_device_cache()
     torch.cuda.empty_cache()
     rows.append(phase_k5(ref, bundle, em, dev, mem_rate, op_rate))
+    spread_launches, spread = phase_spread(dev, mem_rate, op_rate)
+    for k, n in spread_launches.items():
+        if n > 0 and k != "sweep_part":
+            fail(f"kernel {k} launched on the spread phase's Gibbs run")
     phase_goldens()
     sim_tpm = em.tpm  # phase 11 draws from phase 6's fit
     del em  # the workload stays for phase 16
@@ -3853,6 +4011,8 @@ def main(argv=None) -> int:
         r["prsem_launches"] = prsem_launches[r["name"]]
         if r["name"] == "sweep_part":  # uniform prior, then pRSEM's
             r["prsem_gibbs_launches"] = prsem_k5
+            r["spread_launches"] = spread["launches"]
+            r["spread_ms_per_sweep"] = spread["ms_per_sweep"]
         # phase 16: the posterior path with a group of 1 (NCCL), and each
         # rank's of the group of 2 (gloo); K1 runs as its two halves there
         name = "theta_partial" if r["name"] == "theta_round" else r["name"]
@@ -3877,7 +4037,7 @@ def main(argv=None) -> int:
                     "simulate": simulate, "allele": allele,
                     "bam_options": bam_options, "prsem": prsem,
                     "group": group, "cache": cache,
-                    "streamed": streamed}))
+                    "streamed": streamed, "spread": spread}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

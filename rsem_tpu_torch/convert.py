@@ -126,13 +126,18 @@ def gibbs_state_from_jax(parts, zohs, tables, M: int):
         X = n_tiles * TILE_ROWS
         nr = n_tiles * (TILE_SLOTS // K)
         ncs = ncs_t[:X].reshape(nr, K)[:, 0]
-        placed = (cps[:X].reshape(nr, K) > 0).any(1) | (ncs > 0)
+        placed = ((cps[:X].reshape(nr, K) > 0).any(1) | (ncs > 0)).reshape(
+            n_tiles, -1)
+        # a tile's fill runs to its last placed read (JAX pads only the
+        # bucket's last tile, at its end)
+        fill = np.where(placed.any(1),
+                        placed.shape[1] - placed[:, ::-1].argmax(1), 0)
         out_parts.append(GibbsPart(
             sid=torch.as_tensor(np.ascontiguousarray(
                 np.array(p.sid_t, dtype=np.int32)[:X].reshape(-1))),
             cps=torch.as_tensor(np.ascontiguousarray(cps[:X].reshape(-1))),
             ncs=torch.as_tensor(np.ascontiguousarray(ncs)),
-            K=K, n_tiles=n_tiles, n_real=int(placed.sum())))
+            K=K, n_tiles=n_tiles, fill=fill.astype(np.int64)))
         zr = np.asarray(z)[:, :X].reshape(z.shape[0], nr, K)
         a = np.where(zr.any(2), zr.argmax(2), -1).astype(np.int32)
         assigns.append(torch.as_tensor(a))

@@ -4,9 +4,9 @@ Counterpart of rsem_tpu/engine/gibbs.py, tile-sweep path
 (`_run_gibbs_pallas` there, :287-455). The reference runs independent
 chains, each a sequential sweep over all reads per round
 (Gibbs.cpp:265-353). Here every chain sweeps the reads tile by tile (kernel
-K5, ops/gibbs.py): each tile of thousands of reads is one block of the
-blocked collapse, sampling against the counts as they stood at the tile's
-start with its own assignment subtracted exactly.
+K5, ops/gibbs.py): each tile is one block of the blocked collapse, its
+reads sampling against the counts as they stood at the tile's start with
+their own assignment subtracted exactly.
 
 Flow: layout build on the host from the frozen conprbs; counts set-up with
 omit and prior (`setup_counts`); chain init; burn-in plus retained sweeps,
@@ -25,8 +25,11 @@ uniforms' chain key, so every chain draws what it would in one process),
 and the ranks gather the retained count vectors; the moments then run on
 every rank. Otherwise every rank runs all the chains.
 
-Not ported here: the XLA blocked sweep (`n_blocks`), which the JAX mesh
-path uses and the port needs neither there nor elsewhere, and the TPU
+The layout deals each bucket's reads over its tiles (ops/gibbs.py) so that
+no tile holds a whole ambiguous split; `GibbsConfig.n_blocks` keeps the JAX
+package's meaning, the XLA blocked sweep's staleness bound: a read samples
+against counts at most ~N1 / n_blocks reads stale. Not ported: the XLA
+sweep itself, whose bound the tile layout now keeps, and the TPU
 watchdog's `sweep_segment`.
 """
 
@@ -57,6 +60,10 @@ class GibbsConfig:
     nsamples: int = 1000
     gap: int = 1
     n_chains: int = 8
+    # within-sweep count-refresh budget: a bucket's reads are dealt over at
+    # least its share of n_blocks tiles, so any read samples against
+    # counts at most ~N1/n_blocks reads stale (rsem_tpu's meaning)
+    n_blocks: int = 32
     pseudo_count: float = 1.0
     seed: int = 0
     keep_countvectors: bool = True
@@ -236,7 +243,8 @@ def run_gibbs(
     init_counts, pseudo, totc = setup_counts(cfg, M, N0, hits.n_reads,
                                              omit, prior)
     pseudo_d = torch.as_tensor(pseudo, dtype=torch.float32, device=dev)
-    layout = build_layout(hits, log_conprb, log_ncp, M, device=dev)
+    layout = build_layout(hits, log_conprb, log_ncp, M, device=dev,
+                          n_blocks=cfg.n_blocks)
     table_base = torch.as_tensor(init_counts + pseudo, dtype=torch.float32)
     table_base[0] += N0 + layout.n_noise_fixed
     split = dist is not None and C % dist.world == 0

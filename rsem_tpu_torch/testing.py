@@ -284,6 +284,53 @@ def synthetic_gibbs_hits(N: int, M: int, seed: int, max_hits: int,
     return hits, lcp, lnp
 
 
+def pair_hits(ratios, reads_per_pair: int):
+    """(HitArrays, log_conprb [H], log_ncp [N]) of len(ratios) pairs of
+    isoforms: pair p holds sids 2p+1 and 2p+2 and reads_per_pair reads,
+    each aligned to both with conprbs ratios[p] : 1 and no noise slot. With
+    unit pseudo-counts the collapsed posterior of a pair's count on its
+    first member is exact (`pair_posterior`)."""
+    ratios = np.asarray(ratios, dtype=np.float64)
+    N = len(ratios) * reads_per_pair
+    pair = np.arange(N) // reads_per_pair
+    sid = np.stack([2 * pair + 1, 2 * pair + 2], 1).reshape(-1)
+    lcp = np.zeros((N, 2))
+    lcp[:, 0] = np.log(ratios[pair])
+    hits = HitArrays(rid=np.repeat(np.arange(N, dtype=np.int32), 2),
+                     sid=sid.astype(np.int32), dir=np.zeros(2 * N, np.int8),
+                     pos=np.zeros(2 * N, np.int32), insert_len=None,
+                     read_offsets=np.arange(0, 2 * N + 1, 2, dtype=np.int64))
+    return hits, lcp.reshape(-1), np.full(N, -np.inf)
+
+
+def pair_posterior(ratio: float, n: int) -> Tuple[float, float]:
+    """Mean and SD of the exact posterior of a `pair_hits` pair's count c
+    on its first member: summed over the assignments with that count, the
+    collapsed joint gives C(n, c) c! (n - c)! ratio^c = n! ratio^c, so
+    p(c) is proportional to ratio^c on 0..n (uniform for ratio 1)."""
+    c = np.arange(n + 1)
+    logp = c * np.log(float(ratio))
+    p = np.exp(logp - logp.max())
+    p /= p.sum()
+    mean = float((p * c).sum())
+    return mean, float(np.sqrt((p * (c - mean) ** 2).sum()))
+
+
+def pair_tile_max(layout) -> int:
+    """The largest number of one `pair_hits` pair's reads in one tile of a
+    Gibbs layout (a read's pair from its first slot's sid)."""
+    import torch
+
+    most = 0
+    for part in layout.parts:
+        sid = part.sid.view(part.n_tiles, part.reads_per_tile, part.K)
+        for t, f in enumerate(part.fill):
+            if f:
+                pair = (sid[t, :int(f), 0].long() - 1) // 2
+                most = max(most, int(torch.bincount(pair).max()))
+    return most
+
+
 def relabel_layout(layout, table, factor: int = 10):
     """The same Gibbs layout with every slot sid s relabelled factor * s and
     the chains' count table widened to T = factor * M + 1 (entry factor * s
@@ -295,7 +342,7 @@ def relabel_layout(layout, table, factor: int = 10):
     from .ops.gibbs import GibbsLayout, GibbsPart
 
     parts = [GibbsPart(p.sid * factor, p.cps, p.ncs, p.K, p.n_tiles,
-                       p.n_real) for p in layout.parts]
+                       p.fill) for p in layout.parts]
     C, T = table.shape
     wide = torch.ones((C, factor * (T - 1) + 1), dtype=table.dtype,
                       device=table.device)

@@ -5,11 +5,17 @@ driver on an allele-specific reference with and without --calc-pme
 --calc-ci (.alleles.results, transcript-level .isoforms.results,
 .genes.results).
 
-The JAX driver runs its Gibbs stage on one device with the Pallas tile
-sweep in interpret mode (GibbsConfig(kernel="pallas")), the sampler the
-port's K5 replays: on the CPU it would otherwise take its XLA blocked
-sweep, whose posterior is wider where many reads of one ambiguous split
-share a tile (ROADMAP C)."""
+The JAX driver runs its Gibbs stage on one device with its CPU default,
+the XLA blocked sweep, which bounds staleness at ~N1/n_blocks reads as the
+port's dealt tile layout does (its Pallas tile sweep, which packs the 60
+reads of the two tX alleles into one tile, gives a narrower posterior).
+That sweep's one-hot count refresh runs here with 512-lane blocks
+(`xla_gibbs`): the same integer sums as its default 32,768, several times
+faster on the CPU. The 60 shared reads have a flat posterior whose
+autocorrelation time is ~28 sweeps, so the runs keep every eighth sweep
+(POSTERIOR's --gibbs-sampling-gap): at a gap of 1 the CI upper bound of
+tX_a1's TPM moves by ~71,000 (SD) between seeds of one correct sampler,
+against a tolerance of ~68,000, and by ~24,000 at a gap of 8."""
 
 import functools
 import os
@@ -139,7 +145,25 @@ def test_group_starts_checks_contiguity():
 ALLELES = [("tX_a1", T1), ("tX_a2", T1[:-3]), ("tY_a1", T3)]
 POSTERIOR = ["--calc-pme", "--calc-ci", "--seed", "5", "--gibbs-burnin",
              "50", "--gibbs-number-of-samples", "400",
+             "--gibbs-sampling-gap", "8",
              "--ci-number-of-samples-per-count-vector", "10"]
+
+
+def xla_gibbs(run_gibbs):
+    """The JAX driver's run_gibbs with the XLA sweep's one-hot count
+    refresh (rsem_tpu/ops/pallas_table.py:onehot_scatter) in blocks of
+    512 lanes instead of 32,768: its +-1 weights sum to the same small
+    integers in any block, so the chains are the same; the default pads
+    each block of a few reads to 32,768 lanes on the CPU."""
+    pallas_table = sys.modules["rsem_tpu.ops.pallas_table"]
+    onehot = pallas_table.onehot_scatter
+
+    def call(*args, **kwargs):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pallas_table, "onehot_scatter",
+                       functools.partial(onehot, block=512))
+            return run_gibbs(*args, **kwargs)
+    return call
 
 
 def _allele_inputs(d):
@@ -175,10 +199,9 @@ def allele_runs(tmp_path_factory):
         with pytest.MonkeyPatch.context() as mp:
             mp.chdir(d)
             driver = sys.modules["rsem_tpu.pipeline.calculate_expression"]
-            mp.setattr(driver, "GibbsConfig",
-                       functools.partial(JGibbsConfig, kernel="pallas"))
-            # one device, as the port: the test session's 8-device CPU mesh
-            # would send the JAX Gibbs stage to its XLA sweep
+            mp.setattr(driver, "run_gibbs", xla_gibbs(driver.run_gibbs))
+            # one device, as the port, not the test session's 8-device CPU
+            # mesh
             mp.setattr(driver, "_production_mesh", lambda n: None)
             prep = ["--allele-to-gene-map", "amap.txt", "alleles.fa", "aref",
                     "-q"]

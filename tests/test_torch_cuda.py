@@ -9,7 +9,9 @@ large for the shared-memory copy (gather) or needing the opt-in shared
 memory (scatter), 256-column rows, empty inputs, reads of up to 200 hits
 in the theta round, PreIdx for paired and quality-less reads, and the
 Gibbs sweep (K5) at read widths from 1 to 8192 slots, one and eight chains,
-on the layout's own table and on one 40 times as large; plus the fused
+on the layout's own table and on one 40 times as large, and on layouts
+dealt over mostly empty tiles (the posterior-spread test's input); plus
+the fused
 model loop against the CPU and under sync debug mode "error", run_em,
 run_gibbs and run_ci on the card against the CPU and the goldens (with an
 allele grouping too), and
@@ -536,9 +538,9 @@ def test_model_loop_k3_allocates_nothing(dev, monkeypatch):
 @pytest.mark.parametrize("K", [1, 4, 32, 64, 256, 1024, 8192])
 def test_gibbs_sweep_matches_plain(dev, K, n_chains, table):
     """K5 against sweep_part_plain on the card and on the CPU, exact, over
-    two sweeps: several tiles per part, window and full-table parts (K=1,
-    M=5000), fractional pseudo-counts, an omitted sid, and reads whose noise
-    slot competes with their hits. table: the layout's own T = M+1, or the
+    two sweeps: several tiles per part, each with padding at its end,
+    fractional pseudo-counts, an omitted sid, and reads whose noise slot
+    competes with their hits. table: the layout's own T = M+1, or the
     sids relabelled s -> 40 s in a table of T = 40 M + 1 (200,001 at
     K=1). One delta scratch serves all the card's sweeps and ends zero."""
     lo = K // 2 + 1 if K > 1 else 1
@@ -620,6 +622,67 @@ def test_run_gibbs_cuda_matches_cpu(dev):
     assert torch.equal(g.countvectors.cpu(), c.countvectors)
     np.testing.assert_allclose(g.pme_c, c.pme_c, rtol=1e-12)
     np.testing.assert_allclose(g.pme_tpm, c.pme_tpm, rtol=1e-5)
+
+
+def test_run_gibbs_spread_input_cuda_matches_cpu(dev):
+    """tests/test_torch_gibbs_spread.py's pairs (12 of equal conprbs, 12 of
+    ratio 1.1, 20 reads each) at its run's configuration: a layout of 32
+    mostly empty tiles (n_blocks = 32), one read of a pair per tile; K5
+    on the card gives the CPU's count vectors exactly, one launch per
+    sweep."""
+    from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
+    from rsem_tpu_torch.refprep.transcripts import GroupInfo
+    from rsem_tpu_torch.testing import pair_hits, pair_tile_max
+
+    M = 48
+    hits, lcp, lnp = pair_hits([1.0] * 12 + [1.1] * 12, 20)
+    layout = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
+    assert layout.n_tiles == 32 and pair_tile_max(layout) == 1
+    eel, mw = np.full(M + 1, 1000.0), np.ones(M + 1)
+    gi = GroupInfo(np.concatenate([np.arange(1, M + 1, 2), [M + 1]]))
+    cfg = GibbsConfig(burnin=60, nsamples=32 * 120, n_chains=32, seed=4)
+    n0 = gibbs.sweep_part.launches
+    g = run_gibbs(hits, lcp, lnp, M, 0, eel, mw, gi, cfg, device=dev)
+    torch.cuda.synchronize()
+    assert gibbs.sweep_part.launches - n0 == 60 + 120
+    c = run_gibbs(hits, lcp, lnp, M, 0, eel, mw, gi, cfg, device="cpu")
+    assert torch.equal(g.countvectors.cpu(), c.countvectors)
+    np.testing.assert_allclose(g.pve_c, c.pve_c, rtol=1e-12)
+
+
+def test_gibbs_sweep_dealt_few_reads_matches_plain(dev):
+    """A few hundred reads of 3-6 hits (widths 4 and 8) with noise slots,
+    dealt over their share of n_blocks = 32 tiles (most slots padding, in
+    every tile): K5 launches once per part and sweep and stays identical
+    to the plain version, which skips the padding."""
+    M = 12
+    hits, lcp, lnp = synthetic_gibbs_hits(200, M, seed=21, max_hits=6,
+                                          min_hits=3)
+    lnp[::3] = -20.0
+    layout = gibbs.build_layout(hits, lcp, lnp, M, n_blocks=32)
+    assert [p.K for p in layout.parts] == [4, 8]
+    assert sum(p.n_tiles for p in layout.parts) >= 32
+    assert all(p.fill.max() < p.reads_per_tile for p in layout.parts)
+    base = torch.ones(M + 1)
+    base[5] = 0.0  # omitted
+    assigns, tab = gibbs.init_chains(layout, base, 8, seed=2)
+    lay_g = layout.to(dev)
+    a_g = [a.to(dev) for a in assigns]
+    t_g = tab.to(dev)
+    scratch = gibbs.delta_scratch(t_g)
+    n0 = gibbs.sweep_part.launches
+    for sweep in range(3):
+        for pi, part in enumerate(layout.parts):
+            sp = gibbs.part_seed(6, pi)
+            gibbs.sweep_part(a_g[pi], t_g, lay_g.parts[pi], sp, sweep,
+                             scratch)
+            gibbs.sweep_part(assigns[pi], tab, part, sp, sweep)
+    torch.cuda.synchronize()
+    assert gibbs.sweep_part.launches == n0 + 3 * len(layout.parts)
+    for g, c in zip(a_g, assigns):
+        assert torch.equal(g.cpu(), c)
+    assert torch.equal(t_g.cpu(), tab)
+    assert not bool(scratch.any())
 
 
 def _allele_groups(M):

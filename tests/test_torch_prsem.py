@@ -6,12 +6,12 @@ partition models and the Dirichlet-multinomial fit, learn_prior's files
 byte for byte given the same posterior mean counts, the ChIP-seq leg, and
 the driver end to end on tests/test_prsem.py's fixture.
 
-The JAX driver runs its Gibbs stage on one device with the Pallas tile
-sweep in interpret mode (GibbsConfig(kernel="pallas")), the sampler the
-port's K5 replays, as tests/test_torch_allele.py does."""
+The JAX driver runs its Gibbs stage on one device with its CPU default,
+the XLA blocked sweep, whose staleness bound (~N1/n_blocks reads) the
+port's dealt tile layout keeps, its one-hot count refresh in small blocks
+(test_torch_allele.xla_gibbs), as tests/test_torch_allele.py does."""
 
 import contextlib
-import functools
 import io
 import os
 import shutil
@@ -24,7 +24,6 @@ import torch
 
 import rsem_tpu.prsem as jprsem
 import rsem_tpu_torch.prsem as pprsem
-from rsem_tpu.engine.gibbs import GibbsConfig as JGibbsConfig
 from rsem_tpu.pipeline.calculate_expression import main as jax_calc
 from rsem_tpu.pipeline.prepare_reference import main as jax_prep
 from rsem_tpu.prsem import chipseq as jchip
@@ -46,6 +45,7 @@ from test_prsem import (
     _reads_sam,
 )
 from test_prsem_partition import _synthetic_features
+from test_torch_allele import xla_gibbs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GIBBS = ["--calc-pme", "--seed", "13", "--gibbs-chains", "2",
@@ -295,8 +295,7 @@ def driver_runs(tmp_path_factory):
             genome, genes = _make_genome_and_gtf(d)
             _reads_sam(genome, genes, d)
             driver = sys.modules["rsem_tpu.pipeline.calculate_expression"]
-            mp.setattr(driver, "GibbsConfig",
-                       functools.partial(JGibbsConfig, kernel="pallas"))
+            mp.setattr(driver, "run_gibbs", xla_gibbs(driver.run_gibbs))
             mp.setattr(driver, "_production_mesh", lambda n: None)
             prep = ["--gtf", "anno.gtf", "genome.fa", "gref", "-q"]
             argv = ["--alignments", "aln.sam", "gref", "psm", "-q",
