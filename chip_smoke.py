@@ -62,7 +62,15 @@ non-zero on failure:
     both relabelled s -> 10 s with the table widened to T = 200,001 (a
     human transcriptome's size); time one sweep of each (>= 5 warm
     samples), us per tile step, and the bound from the bytes this run's
-    data moves.
+    data moves. Each layout (the EM conprbs' and the mixing variant's) is
+    built and its chains drawn on the card (build_layout, init_chains:
+    seconds of each, synchronised), then by the same functions on the
+    CPU (seconds of each at full width): the card's parts, widths, tile
+    counts, fills and sids equal the CPU's and its scaled conprbs lie
+    within one f32 ulp; its initial assignments and tables equal the
+    CPU's on the same layout bit for bit; a warm card set-up under
+    torch.profiler copies no more than SETUP_D2H_LIMIT bytes to the host
+    (sizes only, never a per-hit or per-read array).
  7b. the Gibbs sampler's posterior spread at a real sample's size: 10,000
     pairs of isoforms with 50 reads each (500,000 reads, 1M alignments,
     M = 20,000; testing.pair_hits), half with equal conprbs and half with
@@ -75,7 +83,15 @@ non-zero on failure:
     tile (logged beside the same statistic for the sorted front-to-back
     packing of the JAX Pallas layout); K5 identical to its plain version
     over 3 sweeps on this layout, its ms per sweep (>= 5 warm samples)
-    and bound; the host layout build's seconds.
+    and bound; the set-up held and timed on the card and the CPU as in
+    phase 7.
+ 7c. the Gibbs set-up at a real sample's size (phase 17c's input: 40M
+    reads of 1-5 hits, 120M hits, M = 200,000, log conprbs drawn as
+    tests/test_scale.py:146-148 draws them), run with 17c: build_layout
+    and init_chains of 8 chains on the card from device copies of the
+    inputs: seconds of each, parts, tiles, the peak device memory above
+    the inputs; one K5 sweep over every part (CUDA events, median of 3).
+    No host run at that size.
  8. calculate-expression through the CLI entry point on the golden SAMs
     (tests/goldens/aln.sam.gz; aln_pe.sam.gz with --paired-end
     --estimate-rspd), each through native ingest and the fused model loop
@@ -263,11 +279,11 @@ the same inputs, in turns; the port never calls it.
 
 The line before `kernels` holds the stage numbers (phases 11-12 under
 `simulate`, 13 under `allele`, 14 under `bam_options`, 15 under
-`prsem`, 16 under `group`, 17 under `cache` and `streamed`, 7b under
-`spread`, which the K5 row's `spread_launches` and `spread_ms_per_sweep`
-repeat); each kernel
-row adds its launches with the group of one (`sharded_launches`; K1: its
-partial half's), on each rank of the group of two
+`prsem`, 16 under `group`, 17 under `cache` and `streamed`, 7 under
+`gibbs_setup`, 7b under `spread`, which the K5 row's `spread_launches`
+and `spread_ms_per_sweep` repeat, 7c under `gibbs_setup_real`); each
+kernel row adds its launches with the group of one (`sharded_launches`;
+K1: its partial half's), on each rank of the group of two
 (`sharded_world2_launches`) and in 17a's first pass (`cache_launches`);
 K1's row adds its partial's launches in 17b and 17c
 (`streamed_launches`); the next-to-last line is {"kernels": [...]}, the
@@ -302,6 +318,7 @@ WARM_PASSES = 5
 TIMING_SAMPLES = 7
 ISOFORMS_PER_GENE = 4  # gene grouping of the synthetic transcripts
 K5_SWEEPS = 3  # sweeps held against the plain version
+SETUP_D2H_LIMIT = 64 * 2**10  # bytes the card's Gibbs set-up may copy back
 # phase 7b: 10,000 pairs of isoforms, 50 reads each (500,000 reads, 1M
 # alignments), half of conprb ratio 1.1; 8 chains, burn-in 1,000, 8,000
 # samples
@@ -1285,6 +1302,101 @@ def k5_bound(layout, C, moved, changed, mem_rate, op_rate):
                  mem_rate, op_rate) + (nbytes, n_sids)
 
 
+def _layouts_match(g, c, what: str) -> int:
+    """The card's layout g against the CPU's c: every integer field
+    exactly, cps and ncs within one f32 ulp. Returns the slots that differ
+    by that ulp."""
+    import numpy as np
+
+    if (g.n_reads, g.n_noise_fixed, [(p.K, p.n_tiles) for p in g.parts]) != (
+            c.n_reads, c.n_noise_fixed, [(p.K, p.n_tiles) for p in c.parts]):
+        fail(f"{what}: the card's layout has other parts than the CPU's")
+    off = 0
+    for p, q in zip(g.parts, c.parts):
+        if not (np.array_equal(p.fill, q.fill) and
+                np.array_equal(p.sid.cpu().numpy(), q.sid.numpy())):
+            fail(f"{what}: the card's fills or sids differ from the CPU's")
+        for x, y in ((p.cps, q.cps), (p.ncs, q.ncs)):
+            x, y = x.cpu().numpy(), y.numpy()
+            d = np.abs(x - y)
+            if (d > np.spacing(np.maximum(np.abs(x), np.abs(y)))).any():
+                fail(f"{what}: scaled conprbs differ by more than one ulp")
+            off += int((d > 0).sum())
+    return off
+
+
+def trace_copies(prof, kind: str) -> tuple:
+    """(memcpy events whose name holds `kind`, "HtoD" or "DtoH", in a
+    profiler's chrome trace; the byte counts of those that carry one)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    ev = [e for e in trace.get("traceEvents", [])
+          if kind in str(e.get("name", ""))]
+    return len(ev), [e["args"]["bytes"] for e in ev
+                     if "bytes" in e.get("args", {})]
+
+
+def hold_gibbs_setup(label, hits, lcp, lnp, M, C, seed, base_of, dev):
+    """build_layout and init_chains of C chains on the card, each timed
+    (synchronised), then on the CPU; the card's layout against the CPU's
+    (_layouts_match) and its initial state against the CPU's on the same
+    layout, bit for bit; a warm card set-up under torch.profiler copies at
+    most SETUP_D2H_LIMIT bytes to the host. base_of(layout): the f32 table
+    base. Returns (card layout, assignments, table, numbers)."""
+    import torch
+
+    from rsem_tpu_torch.ops import gibbs
+
+    def card():
+        lay = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
+        return (lay,) + gibbs.init_chains(lay, base_of(lay).to(dev), C,
+                                          seed=seed)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    layout = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    base = base_of(layout)
+    assigns, tab = gibbs.init_chains(layout, base.to(dev), C, seed=seed)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    prof, warm_s = profiled(card)
+    n_d2h, got = trace_copies(prof, "DtoH")
+    most, total = (max(got), sum(got)) if got else (None, None)
+    if most is not None and most > SETUP_D2H_LIMIT:
+        fail(f"{label}: the card's Gibbs set-up copied {most} bytes to the "
+             f"host at once (limit {SETUP_D2H_LIMIT})")
+    t3 = time.perf_counter()
+    cpu_layout = gibbs.build_layout(hits, lcp, lnp, M, device="cpu")
+    t4 = time.perf_counter()
+    a_c, t_c = gibbs.init_chains(cpu_layout, base, C, seed=seed)
+    t5 = time.perf_counter()
+    off = _layouts_match(layout, cpu_layout, label)
+    if off:  # the states compare on one layout
+        a_c, t_c = gibbs.init_chains(layout.to("cpu"), base, C, seed=seed)
+    if not (torch.equal(tab.cpu(), t_c) and all(
+            torch.equal(x.cpu(), y) for x, y in zip(assigns, a_c))):
+        fail(f"{label}: the card's initial state differs from the CPU's")
+    out = dict(build_s=t1 - t0, init_s=t2 - t1, warm_setup_s=warm_s,
+               cpu_build_s=t4 - t3, cpu_init_s=t5 - t4, ulp_slots=off,
+               d2h_copies=n_d2h, d2h_max_bytes=most, d2h_bytes=total,
+               parts=len(layout.parts), tiles=layout.n_tiles)
+    log(f"Gibbs set-up ({label}): {len(layout.parts)} parts, widths "
+        f"{[p.K for p in layout.parts]}, {layout.n_tiles} tiles, "
+        f"{layout.n_reads} reads, {layout.n_slots} slots; card build "
+        f"{out['build_s']:.4f} s, init {out['init_s']:.4f} s ({C} chains; "
+        f"warm, profiled, both {warm_s:.4f} s); CPU build "
+        f"{out['cpu_build_s']:.3f} s, init {out['cpu_init_s']:.3f} s; "
+        f"layout equal to the CPU's ({off} conprbs one ulp apart), initial "
+        f"state identical; {n_d2h} device-to-host copies, at most {most} "
+        f"bytes, {total} in all")
+    return layout, assigns, tab, out
+
+
 def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
     """K5 against its plain version at full width, K5_SWEEPS sweeps of 8
     chains from one initial state each way: on the posterior path's layout
@@ -1292,27 +1404,25 @@ def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
     conprbs drawn from a seed, so reads move between alignments and noise;
     the workload's decoy alignments have conprbs that underflow, which pins
     most reads), and on both relabelled s -> 10 s with the table widened to
-    T = 200,001. Then one sweep's time of each. Returns the K5 row."""
+    T = 200,001. Then one sweep's time of each. The set-up of each layout
+    is held and timed on the card and the CPU (hold_gibbs_setup). Returns
+    the K5 row and the set-up numbers."""
     import numpy as np
     import torch
 
-    from rsem_tpu_torch.ops import gibbs
     from rsem_tpu_torch.testing import relabel_layout
 
     M, C = ref.M, 8
+    setups = {}
 
-    def setup(lcp, lnp, label):
-        t0 = time.perf_counter()
-        layout = gibbs.build_layout(bundle.hits, lcp, lnp, M, device=dev)
-        t1 = time.perf_counter()
+    def base_of(layout):
         base = torch.ones(M + 1)
         base[0] += bundle.cnt.N0 + layout.n_noise_fixed
-        assigns, tab = gibbs.init_chains(layout, base, C, seed=1, device=dev)
-        log(f"K5 {label} layout: {len(layout.parts)} parts, widths "
-            f"{[p.K for p in layout.parts]}, {layout.n_tiles} tiles per "
-            f"sweep, {layout.n_reads} reads, {layout.n_slots} slots; host "
-            f"build {t1 - t0:.3f} s, chain init {time.perf_counter() - t1:.3f}"
-            f" s")
+        return base
+
+    def setup(lcp, lnp, label):
+        layout, assigns, tab, setups[label] = hold_gibbs_setup(
+            f"K5 {label}", bundle.hits, lcp, lnp, M, C, 1, base_of, dev)
         return layout, assigns, tab
 
     def hold(layout, assigns, tab, label):
@@ -1359,7 +1469,7 @@ def phase_k5(ref, bundle, em, dev, mem_rate, op_rate):
         f"{mix_moved:.0f} assignments moved per sweep), "
         f"{bl_ms * 1e3:.2f} us at the large table")
     us = lambda ms: ms[0] * 1e3 / n_tiles  # noqa: E731
-    return dict(
+    return setups, dict(
         name="sweep_part", id="K5", route="cuda",
         source="rsem_tpu_torch/csrc/gibbs_sweep.cu",
         replaces="rsem_tpu/ops/pallas_gibbs.py:371",
@@ -1434,15 +1544,23 @@ def phase_spread(dev, mem_rate, op_rate, n_pairs: int = SPREAD_PAIRS,
                        keep_countvectors=False)
     on_card = torch.device(dev).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    t0 = time.perf_counter()
-    layout = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
-    build_s = time.perf_counter() - t0
+    if on_card:
+        layout, assigns, tab, setup = hold_gibbs_setup(
+            "spread", hits, lcp, lnp, M, C, 1, lambda _l: torch.ones(M + 1),
+            dev)
+    else:  # the CPU rehearsal: no card to hold against
+        t0 = time.perf_counter()
+        layout = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
+        t1 = time.perf_counter()
+        assigns, tab = gibbs.init_chains(layout, torch.ones(M + 1), C, seed=1)
+        setup = dict(build_s=t1 - t0, init_s=time.perf_counter() - t1)
     most = pair_tile_max(layout)
     packed = sorted_packing_max(hits, lcp, layout.parts[0].reads_per_tile)
     log(f"spread: {hits.n_reads} reads, {hits.n_hits} alignments, M = {M};"
         f" layout {len(layout.parts)} part(s), {layout.n_tiles} tiles per "
-        f"sweep, host build {build_s:.3f} s; at most {most} read(s) of one "
-        f"pair in a tile (the sorted packing: {packed})")
+        f"sweep, build {setup['build_s']:.4f} s, init "
+        f"{setup['init_s']:.4f} s; at most {most} read(s) of one pair in a "
+        f"tile (the sorted packing: {packed})")
     if most > 1:
         fail(f"spread: {most} reads of one pair share a tile")
     wrappers = kernel_wrappers()
@@ -1460,7 +1578,7 @@ def phase_spread(dev, mem_rate, op_rate, n_pairs: int = SPREAD_PAIRS,
              f"{sweeps * len(layout.parts)}")
     out = dict(reads=hits.n_reads, alignments=hits.n_hits, M=M,
                tiles_per_sweep=layout.n_tiles, parts=len(layout.parts),
-               host_build_s=build_s, pair_tile_max=most,
+               setup=setup, pair_tile_max=most,
                sorted_packing_pair_tile_max=packed, run_gibbs_s=wall,
                launches=launches["sweep_part"], sweeps=sweeps)
     for name, ratio, first in (("equal", 1.0, slice(1, M // 2, 2)),
@@ -1482,8 +1600,6 @@ def phase_spread(dev, mem_rate, op_rate, n_pairs: int = SPREAD_PAIRS,
         if abs(got_mean - mean) > 0.03 * sd:
             fail(f"spread ({name}): pooled mean {got_mean} not within 0.03 "
                  f"SD of the exact {mean}")
-    base = torch.ones(M + 1)
-    assigns, tab = gibbs.init_chains(layout, base, C, seed=1, device=dev)
     kern_sweep, _p, moved, changed = k5_replay(layout, assigns, tab, 7,
                                                "spread")
     k_ms = time_cuda(lambda: kern_sweep(K5_SWEEPS)) if on_card else (
@@ -3520,18 +3636,8 @@ def h2d_of(prof) -> tuple:
           if e.device_type == torch.autograd.DeviceType.CUDA
           and "HtoD" in e.name]
     ms = sum(e.device_time for e in ev) / 1e3
-    nbytes = None
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    got = [e["args"]["bytes"] for e in trace.get("traceEvents", [])
-           if "HtoD" in str(e.get("name", "")) and "bytes" in e.get(
-               "args", {})]
-    if got:
-        nbytes = int(sum(got))
-    return len(ev), ms, nbytes
+    got = trace_copies(prof, "HtoD")[1]
+    return len(ev), ms, (int(sum(got)) if got else None)
 
 
 def phase_cache(ref, bundle, model0, dev):
@@ -3771,9 +3877,93 @@ def pinned_rate(dev, nbytes: int = 2**30, samples: int = 3) -> float:
     return nbytes / (statistics.median(ts) / 1e3) / 1e9
 
 
-def phase_streamed_real(dev):
-    """17c: the streamed loop at a real sample's size against the resident
-    loop, peak device memory of each. Returns a summary."""
+def phase_gibbs_setup_real(dev, hits, lcp, lnp, C: int = 8, seed: int = 1):
+    """7c: build_layout and init_chains of C chains on the card at a real
+    sample's size (17c's input, on the card before either runs), each
+    timed (synchronised); parts, tiles, the peak device memory above the
+    inputs; one K5 sweep over every part (CUDA events, median of 3).
+    Returns a summary."""
+    import gc
+
+    import torch
+
+    from rsem_tpu_torch.ops import gibbs
+    from rsem_tpu_torch.ops.layout import HitsDevice
+
+    M = STREAM_M
+    offs = torch.as_tensor(hits.read_offsets).to(dev)
+    hd = HitsDevice(rid=torch.as_tensor(hits.rid).to(dev),
+                    sid=torch.as_tensor(hits.sid).to(dev), dir=None,
+                    pos=None, insert_len=None, read_offsets=offs)
+    lcp_d = torch.as_tensor(lcp).to(dev)
+    lnp_d = torch.as_tensor(lnp).to(dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    layout = gibbs.build_layout(hd, lcp_d, lnp_d, M)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak_build = torch.cuda.max_memory_allocated() - base_bytes
+    base = torch.ones(M + 1, device=dev)
+    base[0] += layout.n_noise_fixed
+    assigns, tab = gibbs.init_chains(layout, base, C, seed=seed)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    state_bytes = (sum(a.numel() for a in assigns) * 4 + tab.numel() * 4)
+    layout_bytes = sum(p.sid.numel() * 8 + p.ncs.numel() * 4
+                       for p in layout.parts)
+    if tab.shape != (C, M + 1) or int(
+            (tab.double().sum(1) - base.double().sum()).ne(
+                layout.n_reads).sum()):
+        fail("7c: the initial tables do not hold every placed read once")
+    seeds = [gibbs.part_seed(seed, pi) for pi in range(len(layout.parts))]
+    scratch = gibbs.delta_scratch(tab)
+    n0 = gibbs.sweep_part.launches
+
+    def sweep():
+        for part, a, sp in zip(layout.parts, assigns, seeds):
+            gibbs.sweep_part(a, tab, part, sp, 0, scratch)
+
+    ms = time_samples(sweep, samples=3, warm=1)
+    torch.cuda.synchronize()
+    if gibbs.sweep_part.launches - n0 != 4 * len(layout.parts):
+        fail("7c: K5 did not launch once per part and sweep")
+    if bool(scratch.any()) or not bool(torch.isfinite(tab).all()):
+        fail("7c: K5 left its scratch non-zero or a non-finite table")
+    out = dict(reads=hits.n_reads, hits=hits.n_hits, M=M, chains=C,
+               parts=len(layout.parts), widths=[p.K for p in layout.parts],
+               tiles=layout.n_tiles, placed_reads=layout.n_reads,
+               slots=layout.n_slots, build_s=t1 - t0, init_s=t2 - t1,
+               peak_bytes_build=peak_build, peak_bytes=peak,
+               input_bytes=base_bytes, layout_bytes=layout_bytes,
+               state_bytes=state_bytes,
+               k5_ms_per_sweep=statistics.median(ms),
+               k5_ms_min=min(ms), k5_ms_max=max(ms))
+    log(f"7c Gibbs set-up at a real sample's size: N={hits.n_reads} "
+        f"H={hits.n_hits} M+1={M + 1}, {C} chains; {len(layout.parts)} "
+        f"parts, widths {out['widths']}, {layout.n_tiles} tiles, "
+        f"{layout.n_slots} slots; card build {t1 - t0:.4f} s, init "
+        f"{t2 - t1:.4f} s; peak device memory above the inputs "
+        f"({base_bytes} bytes) {peak} bytes ({peak / 2**30:.3f} GiB; build "
+        f"alone {peak_build / 2**30:.3f} GiB; layout {layout_bytes}, chain "
+        f"state {state_bytes} bytes); one K5 sweep "
+        f"{out['k5_ms_per_sweep']:.3f} ms [{min(ms):.3f}, {max(ms):.3f}] "
+        f"({out['k5_ms_per_sweep'] * 1e3 / layout.n_tiles:.2f} us per tile "
+        f"step)")
+    del layout, assigns, tab, scratch, hd, lcp_d, lnp_d, offs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_streamed_real(dev, hits, lcp, lnp, gen_s: float):
+    """17c: the streamed loop at a real sample's size (synthetic_theta_csr
+    at STREAM_READS, STREAM_M, generated in gen_s seconds) against the
+    resident loop, peak device memory of each. Returns a summary."""
     import gc
 
     import torch
@@ -3781,9 +3971,6 @@ def phase_streamed_real(dev):
     from rsem_tpu_torch.ops import theta
     from rsem_tpu_torch.parallel.fast_sharded import build_theta_chunks
 
-    t0 = time.perf_counter()
-    hits, lcp, lnp = synthetic_theta_csr(STREAM_READS, STREAM_M)
-    gen_s = time.perf_counter() - t0
     H, N, M = hits.n_hits, hits.n_reads, STREAM_M
     whole = 12 * H + 12 * N + 8
     n_chunks = -(-whole * 21 // 20 // STREAM_CHUNK_BYTES)  # 5% margin
@@ -3946,7 +4133,8 @@ def main(argv=None) -> int:
         ref, bundle, model, dev)
     clear_device_cache()
     torch.cuda.empty_cache()
-    rows.append(phase_k5(ref, bundle, em, dev, mem_rate, op_rate))
+    gibbs_setup, k5_row = phase_k5(ref, bundle, em, dev, mem_rate, op_rate)
+    rows.append(k5_row)
     spread_launches, spread = phase_spread(dev, mem_rate, op_rate)
     for k, n in spread_launches.items():
         if n > 0 and k != "sweep_part":
@@ -3999,7 +4187,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # phase 17b-c: the streamed theta loop
     streamed = {"full_width": phase_streamed(bundle, k1_in, ref.M, dev)}
-    streamed["real_size"] = phase_streamed_real(dev)
+    # 7c and 17c share one input at a real sample's size
+    t0 = time.perf_counter()
+    real = synthetic_theta_csr(STREAM_READS, STREAM_M)
+    gen_s = time.perf_counter() - t0
+    gibbs_setup_real = phase_gibbs_setup_real(dev, *real)
+    streamed["real_size"] = phase_streamed_real(dev, *real, gen_s)
+    del real
     for r in rows:
         # EM kernels: launches of the main path; K5: of the posterior path
         r["launches"] = launches.get(r["name"], post_launches[r["name"]])
@@ -4037,7 +4231,9 @@ def main(argv=None) -> int:
                     "simulate": simulate, "allele": allele,
                     "bam_options": bam_options, "prsem": prsem,
                     "group": group, "cache": cache,
-                    "streamed": streamed, "spread": spread}))
+                    "streamed": streamed, "spread": spread,
+                    "gibbs_setup": gibbs_setup,
+                    "gibbs_setup_real": gibbs_setup_real}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ K5, ops/gibbs.py): each tile is one block of the blocked collapse, its
 reads sampling against the counts as they stood at the tile's start with
 their own assignment subtracted exactly.
 
-Flow: layout build on the host from the frozen conprbs; counts set-up with
-omit and prior (`setup_counts`); chain init; burn-in plus retained sweeps,
+Flow, all on the run's device: layout build from the frozen conprbs and
+the EM's cached upload of the hits; counts set-up with omit and prior
+(`setup_counts`); chain init, keyed on K5's counter hash (the CPU and the
+card draw the same initial state); burn-in plus retained sweeps,
 every sweep one K5 launch per part, each retained count vector kept on the
 device ([C, samples_per_chain, M+1] f32); then the posterior moments,
 summed in float64 on the device. With an allele-specific reference
@@ -19,9 +21,10 @@ transcript-level count variance `pve_c_trans`, summed as the gene one is.
 Several devices (`dist`, a parallel.distributed process group; the JAX
 package's mesh branch, engine/gibbs.py:651-660 there): where the chains
 tile the ranks, each rank builds the layout from all hits, draws the
-initial state of all chains and keeps its own (`init_chains(chains=)`),
-runs K5 on them with its first chain's global index (`chain0`, the
-uniforms' chain key, so every chain draws what it would in one process),
+initial state of its own chains only (`init_chains(chains=)`, keyed on
+the global chain), runs K5 on them with its first chain's global index
+(`chain0`, the uniforms' chain key, so every chain draws what it would in
+one process),
 and the ranks gather the retained count vectors; the moments then run on
 every rank. Otherwise every rank runs all the chains.
 
@@ -231,8 +234,9 @@ def run_gibbs(
     (the .ofg content); gi: gene GroupInfo; prior: [M+1] per-isoform
     pseudo-counts (pRSEM's --prior); ta: transcript -> allele GroupInfo of
     an allele-specific reference (adds pve_c_trans). Runs on CUDA unless
-    device="cpu"; the chains' initial draws come from a CPU generator, so
-    both devices start from one state. dist: the process group; its ranks
+    device="cpu"; the layout and the chains' initial state are built on
+    that device, the state from a counter hash, so both devices start from
+    one state. dist: the process group; its ranks
     (on dist.device) split the chains when n_chains is a multiple of the
     ranks, and every rank returns the same result."""
     dev = dist.device if dist is not None else resolve_device(device)
@@ -245,7 +249,8 @@ def run_gibbs(
     pseudo_d = torch.as_tensor(pseudo, dtype=torch.float32, device=dev)
     layout = build_layout(hits, log_conprb, log_ncp, M, device=dev,
                           n_blocks=cfg.n_blocks)
-    table_base = torch.as_tensor(init_counts + pseudo, dtype=torch.float32)
+    table_base = torch.as_tensor(init_counts + pseudo, dtype=torch.float32,
+                                 device=dev)
     table_base[0] += N0 + layout.n_noise_fixed
     split = dist is not None and C % dist.world == 0
     per = C // dist.world if split else C

@@ -10,7 +10,8 @@ memory (scatter), 256-column rows, empty inputs, reads of up to 200 hits
 in the theta round, PreIdx for paired and quality-less reads, and the
 Gibbs sweep (K5) at read widths from 1 to 8192 slots, one and eight chains,
 on the layout's own table and on one 40 times as large, and on layouts
-dealt over mostly empty tiles (the posterior-spread test's input); plus
+dealt over mostly empty tiles (the posterior-spread test's input); the
+Gibbs set-up on the card (layout and initial state) against the CPU's; plus
 the fused
 model loop against the CPU and under sync debug mode "error", run_em,
 run_gibbs and run_ci on the card against the CPU and the goldens (with an
@@ -606,9 +607,64 @@ def test_gibbs_sweep_checks_inputs(dev):
             _build.stream_of(t)), "gibbs_sweep")
 
 
+def _gibbs_setup_inputs():
+    """Widths 1-32 with noise slots, a fifth of the alignments dropped and
+    reads with no kept slot; and pairs of isoforms (the spread test's)."""
+    from rsem_tpu_torch.testing import pair_hits
+
+    hits, lcp, lnp = synthetic_gibbs_hits(20_000, 400, seed=12, max_hits=24)
+    lcp = lcp.copy()
+    lcp[::5] = -np.inf
+    for r in range(0, 20_000, 101):
+        lcp[hits.read_offsets[r]:hits.read_offsets[r + 1]] = -np.inf
+    lnp = lnp.copy()
+    lnp[::3] = -21.0
+    return {"mixed": (hits, lcp, lnp, 400),
+            "pairs": pair_hits([1.0] * 200 + [1.1] * 200, 30) + (800,)}
+
+
+@pytest.mark.parametrize("case", ["mixed", "pairs"])
+def test_gibbs_layout_cuda_matches_cpu(dev, case):
+    """build_layout on the card (from the cached upload of the hits) equals
+    the CPU's: parts, widths, tile counts, fills and sids exactly, the
+    scaled conprbs within one f32 ulp (f64 exp on either device)."""
+    hits, lcp, lnp, M = _gibbs_setup_inputs()[case]
+    g = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
+    c = gibbs.build_layout(hits, lcp, lnp, M, device="cpu")
+    assert (g.n_reads, g.n_noise_fixed) == (c.n_reads, c.n_noise_fixed)
+    assert [(p.K, p.n_tiles) for p in g.parts] == [
+        (p.K, p.n_tiles) for p in c.parts]
+    for p, q in zip(g.parts, c.parts):
+        assert p.sid.is_cuda and np.array_equal(p.fill, q.fill)
+        assert torch.equal(p.sid.cpu(), q.sid)
+        for x, y in ((p.cps.cpu(), q.cps), (p.ncs.cpu(), q.ncs)):
+            ulp = torch.as_tensor(np.spacing(np.maximum(
+                x.abs().numpy(), y.abs().numpy())))
+            assert bool(((x - y).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("chains", [None, slice(3, 7)])
+def test_gibbs_init_cuda_matches_cpu(dev, chains):
+    """init_chains on the card equals the CPU's on the same layout, bit for
+    bit: assignments and tables, all 8 chains or a rank's slice."""
+    hits, lcp, lnp, M = _gibbs_setup_inputs()["mixed"]
+    layout = gibbs.build_layout(hits, lcp, lnp, M, device=dev)
+    base = torch.full((M + 1,), 0.5)
+    base[0] += 40.0
+    a_g, t_g = gibbs.init_chains(layout, base.to(dev), 8, seed=9,
+                                 chains=chains)
+    a_c, t_c = gibbs.init_chains(layout.to(CPU), base, 8, seed=9,
+                                 chains=chains)
+    assert t_g.is_cuda and torch.equal(t_g.cpu(), t_c)
+    for x, y in zip(a_g, a_c):
+        assert x.is_cuda and torch.equal(x.cpu(), y)
+    assert sum(int((a >= 0).sum()) for a in a_c) > 0
+
+
 def test_run_gibbs_cuda_matches_cpu(dev):
-    """One seed, one initial state (drawn on the host): identical count
-    vectors from the kernel and from the plain version."""
+    """One seed, one initial state (each device builds the layout and
+    draws the state from the counter hash): identical count vectors from
+    the kernel and from the plain version."""
     from rsem_tpu_torch.engine.gibbs import GibbsConfig, run_gibbs
     from rsem_tpu_torch.refprep.transcripts import GroupInfo
 

@@ -192,9 +192,6 @@ def test_counter_hash_matches_jax_bit_for_bit():
     want = np.asarray(pg._mix32(jnp.asarray(keys))).view(np.uint32)
     got = tg.mix32(torch.as_tensor(keys.view(np.uint32).astype(np.int64)))
     np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
-    for k in keys[:50]:
-        assert tg.mix32_int(int(k) & 0xFFFFFFFF) == int(
-            np.asarray(pg._mix32(jnp.int32(k))).view(np.uint32))
     # the kernel's uniform of every read of a tile (pallas_gibbs.py:446-460)
     for seed_part, sweep, tile, K in ((12345, 0, 0, 1), (0xDEADBEEF, 7, 3, 4),
                                       (2**31 + 5, 250, 41, 256)):
