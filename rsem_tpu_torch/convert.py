@@ -31,6 +31,7 @@ from .model.qualdist import QualDist
 from .model.rspd import RSPD
 from .model.spec import ModelSpec
 from .refprep.reference import Reference
+from .utils.device import to_device
 
 CLASS_KEY = "__class__"
 _PORT_CLASSES = {c.__name__: c for c in (
@@ -43,7 +44,7 @@ _PORT_CLASSES = {c.__name__: c for c in (
 def model_arrays_to_torch(np_dict: Dict[str, np.ndarray],
                           device) -> Dict[str, torch.Tensor]:
     """GenerativeModel.device_arrays() -> float32 tensors on `device`."""
-    return {k: torch.as_tensor(np.asarray(v, dtype=np.float32)).to(device)
+    return {k: to_device(np.asarray(v, dtype=np.float32), device)
             for k, v in np_dict.items()}
 
 

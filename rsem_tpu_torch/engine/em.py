@@ -96,7 +96,9 @@ from ..parallel.fast_sharded import (
     run_theta_loop_sharded,
 )
 from ..parallel.mesh import shard_bundle_by_read
-from ..utils.device import DeviceLike, fetch64, resolve_device
+from ..utils.device import DeviceLike, fetch64, fetch_list, \
+    resolve_device, to_device
+from ..utils.timing import count, span
 
 # The default PreIdx budget on CUDA leaves this headroom of the free device
 # memory to the rest of the pass: a fixed part; RUN_BYTES_PER_HIT for every
@@ -199,14 +201,21 @@ def upload(ref, bundle, paired: bool, device: torch.device):
     unchanged since an earlier call."""
     refd = RefDevice.from_reference(ref, device)
     if paired:
-        r1, r2 = bundle.reads.mate1, bundle.reads.mate2
-        width = max(r1.codes.shape[1], r2.codes.shape[1])
-        m1 = ReadsDevice.from_arrays(r1, device, width)
-        m2 = ReadsDevice.from_arrays(r2, device, width)
+        width = read_width(bundle, paired)
+        m1 = ReadsDevice.from_arrays(bundle.reads.mate1, device, width)
+        m2 = ReadsDevice.from_arrays(bundle.reads.mate2, device, width)
     else:
         m1 = ReadsDevice.from_arrays(bundle.reads, device)
         m2 = None
     return refd, m1, m2, HitsDevice.from_arrays(bundle.hits, device)
+
+
+def read_width(bundle, paired: bool) -> int:
+    """Columns of the uploaded read arrays (paired mates share one)."""
+    if paired:
+        return max(bundle.reads.mate1.codes.shape[1],
+                   bundle.reads.mate2.codes.shape[1])
+    return int(bundle.reads.codes.shape[1])
 
 
 def kernel_config(model, bundle, max_read_len: int) -> KernelConfig:
@@ -281,13 +290,13 @@ def _model_rounds(model, kcfg, refd, m1, m2, hd, windows, pre, dev_model,
     each window's PreIdx is built (K4) in each pass and freed after it.
     With `dist` the hits are this rank's, and the counts and statistics
     are summed over the ranks before the refit (n0 added once).
-    Returns (theta f64, the final model's log_conprb, log_ncp)."""
+    Returns (theta f64, the refit model's device arrays)."""
     M = len(theta) - 1
     probF = float(model.spec.probF)
     sid = hd.sid.long()
     for rounds in range(1, n_rounds + 1):
-        log_theta = torch.as_tensor(_safe_log_np(theta),
-                                    dtype=torch.float32).to(device)
+        log_theta = to_device(_safe_log_np(theta).astype(np.float32),
+                              device)
         frac_hit = torch.empty(hd.n_hits, dtype=torch.float32, device=device)
         frac_noise = torch.empty(hd.n_reads, dtype=torch.float32,
                                  device=device)
@@ -312,15 +321,20 @@ def _model_rounds(model, kcfg, refd, m1, m2, hd, windows, pre, dev_model,
         if dist is not None:  # the histograms over all hits
             all_reduce_dict_({k: suff[k] for k in ("gld", "rspd")
                               if k in suff}, dist)
-        model.finish_round(_fetch_stats(suff))
-        dev_model = model_arrays_to_torch(model.device_arrays(), device)
+        dev_model = _refit(model, _fetch_stats(suff), device)
         bchg, _ = _bchange(new_theta, theta)
         theta = new_theta
         if verbose:
             print(f"ROUND = {rounds}, bChange = {bchg:.6g}")
-    log_conprb, log_ncp = _final_conprbs(kcfg, refd, m1, m2, hd, windows,
-                                         pre, dev_model)
-    return theta, log_conprb, log_ncp
+    return theta, dev_model
+
+
+def _refit(model, stats: dict, device) -> dict:
+    """The host float64 refit from the statistics, and the refit model's
+    tables on the device."""
+    with span("rsem.em.refit"):
+        model.finish_round(stats)
+        return model_arrays_to_torch(model.device_arrays(), device)
 
 
 def _any_rank(flag: bool, dist: Optional[Dist], device) -> bool:
@@ -328,7 +342,7 @@ def _any_rank(flag: bool, dist: Optional[Dist], device) -> bool:
     if dist is None:
         return flag
     t = torch.tensor([float(flag)], device=device)
-    return bool(all_reduce_(t, dist).item() > 0)
+    return fetch_list(all_reduce_(t, dist))[0] > 0
 
 
 def _run_em_device(model, ref, bundle, em_cfg: EMConfig,
@@ -338,82 +352,99 @@ def _run_em_device(model, ref, bundle, em_cfg: EMConfig,
     cnt = bundle.cnt
     M = ref.M
     N0 = cnt.N0
-    shard = None if dist is None else shard_bundle_by_read(
-        bundle, dist.world, dist.rank)
-    local = bundle if shard is None else shard.bundle
+    with span("rsem.em.setup"):
+        shard = None if dist is None else shard_bundle_by_read(
+            bundle, dist.world, dist.rank)
+        local = bundle if shard is None else shard.bundle
+        # from all reads: the ranks' tables must have one shape
+        kcfg = kernel_config(model, bundle, read_width(local, spec.paired))
+        theta = _theta_init(cnt, M)
+        dev_model = model_arrays_to_torch(model.device_arrays(), device)
+        n_model_rounds = min(em_cfg.update_model_rounds, em_cfg.max_round)
+        min_fl = int(np.min(ref.full_len[1:])) if M >= 1 else 0
 
     # through the layout's device cache: a repeat call on the same host
     # objects copies nothing. A shard's reads and hits are new slice
     # objects on every call, so they miss it (and are evicted with them)
-    refd, m1, m2, hd = upload(ref, local, spec.paired, device)
-    # from all reads: the ranks' tables must have one shape
-    kcfg = kernel_config(model, bundle, int(m1.codes.shape[1]))
+    with span("rsem.em.upload"):
+        refd, m1, m2, hd = upload(ref, local, spec.paired, device)
     n_reads = hd.n_reads
 
-    budget = preidx_budget(em_cfg, kcfg, device, hd.n_hits)
-    windows = plan_windows(kcfg, local.hits.read_offsets, budget)
-    pre = precompute_profile_indices_fused(kcfg, refd, m1, m2, hd) \
-        if len(windows) == 1 else None
-    if em_cfg.verbose and pre is None:
-        print(f"PreIdx in {len(windows)} windows of at most {budget} bytes")
+    with span("rsem.em.model_loop"):
+        budget = preidx_budget(em_cfg, kcfg, device, hd.n_hits)
+        windows = plan_windows(kcfg, local.hits.read_offsets, budget)
+        pre = precompute_profile_indices_fused(kcfg, refd, m1, m2, hd) \
+            if len(windows) == 1 else None
+        if em_cfg.verbose and pre is None:
+            print(f"PreIdx in {len(windows)} windows of at most {budget} "
+                  "bytes")
+        # every rank takes the same path: the fused loop only where no
+        # rank is windowed
+        whole = not _any_rank(pre is None, dist, device)
+        fused = whole and em_cfg.fused_model and n_model_rounds > 0 and \
+            model_loop.fused_supported(kcfg, spec.has_polya, min_fl)
+        if fused:
+            # every model-update round in one stream of device work; the
+            # float64 reference refit runs once, on the last round's
+            # statistics
+            mdata = model_loop.build_model_loop_data(
+                kcfg, refd, m1, m2, hd, pre, dev_model, model.npro.c, N0,
+                float(spec.probF))
+            theta_t, suff = model_loop.run_model_loop(
+                kcfg, mdata, model_loop.tables_from_model(kcfg, dev_model),
+                to_device(theta.astype(np.float32), device),
+                n_model_rounds, n_reads, M, dist=dist)
+            del mdata
+            stats = _fetch_stats(suff)
+        else:
+            theta, dev_model = _model_rounds(
+                model, kcfg, refd, m1, m2, hd, windows, pre, dev_model,
+                theta, n_model_rounds, em_cfg.verbose, float(N0), device,
+                dist)
+            theta_t = to_device(theta.astype(np.float32), device)
+    if fused:
+        dev_model = _refit(model, stats, device)
 
-    theta = _theta_init(cnt, M)
-    dev_model = model_arrays_to_torch(model.device_arrays(), device)
-    n_model_rounds = min(em_cfg.update_model_rounds, em_cfg.max_round)
-    min_fl = int(np.min(ref.full_len[1:])) if M >= 1 else 0
-    # every rank takes the same path: the fused loop only where no rank
-    # is windowed
-    whole = not _any_rank(pre is None, dist, device)
-    if whole and em_cfg.fused_model and n_model_rounds > 0 and \
-            model_loop.fused_supported(kcfg, spec.has_polya, min_fl):
-        # every model-update round in one stream of device work; the
-        # float64 reference refit runs once, on the last round's statistics
-        mdata = model_loop.build_model_loop_data(
-            kcfg, refd, m1, m2, hd, pre, dev_model, model.npro.c, N0,
-            float(spec.probF))
-        theta_t, suff = model_loop.run_model_loop(
-            kcfg, mdata, model_loop.tables_from_model(kcfg, dev_model),
-            torch.as_tensor(theta, dtype=torch.float32).to(device),
-            n_model_rounds, n_reads, M, dist=dist)
-        del mdata
-        model.finish_round(_fetch_stats(suff))
-        dev_model = model_arrays_to_torch(model.device_arrays(), device)
+    with span("rsem.em.final_conprbs"):
         log_conprb, log_ncp = _final_conprbs(kcfg, refd, m1, m2, hd,
                                              windows, pre, dev_model)
-    else:
-        theta, log_conprb, log_ncp = _model_rounds(
-            model, kcfg, refd, m1, m2, hd, windows, pre, dev_model, theta,
-            n_model_rounds, em_cfg.verbose, float(N0), device, dist)
-        theta_t = torch.as_tensor(theta, dtype=torch.float32).to(device)
-
-    lcp_np = lnp_np = None
-    if need_posteriors:
-        if shard is not None:
-            lcp_np = fetch64(gather_rows(log_conprb, shard.hit_sizes, dist))
-            lnp_np = fetch64(gather_rows(log_ncp, shard.read_sizes, dist))
-        else:
-            lcp_np = fetch64(log_conprb)
-            lnp_np = fetch64(log_ncp)
-    data = theta_ops.scale_conprbs(hd, log_conprb, log_ncp, M, float(N0))
-    del pre  # the theta loop needs only the frozen conprbs
+        lcp_np = lnp_np = None
+        if need_posteriors:
+            if shard is not None:
+                lcp_np = fetch64(gather_rows(log_conprb, shard.hit_sizes,
+                                             dist))
+                lnp_np = fetch64(gather_rows(log_ncp, shard.read_sizes,
+                                             dist))
+            else:
+                lcp_np = fetch64(log_conprb)
+                lnp_np = fetch64(log_ncp)
+        data = theta_ops.scale_conprbs(hd, log_conprb, log_ncp, M, float(N0))
+        del pre  # the theta loop needs only the frozen conprbs
     loop = dict(min_round=em_cfg.min_round, max_round=em_cfg.max_round,
                 start_round=n_model_rounds)
     frac_hit = frac_noise = None
     if shard is not None:
-        theta_t, rounds = run_theta_loop_sharded(theta_t, data, dist, **loop)
-        counts = fetch64(counts_sharded(theta_t, data, dist))
-        if need_posteriors:
-            fh, fn = final_fracs_sharded(theta_t, data, dist,
-                                         shard.hit_sizes, shard.read_sizes)
-            frac_hit, frac_noise = fetch64(fh), fetch64(fn)
+        with span("rsem.em.theta_loop"):
+            theta_t, rounds = run_theta_loop_sharded(theta_t, data, dist,
+                                                     **loop)
+        with span("rsem.em.counts"):
+            counts = fetch64(counts_sharded(theta_t, data, dist))
+            if need_posteriors:
+                fh, fn = final_fracs_sharded(theta_t, data, dist,
+                                             shard.hit_sizes,
+                                             shard.read_sizes)
+                frac_hit, frac_noise = fetch64(fh), fetch64(fn)
     else:
-        theta_t, rounds = theta_ops.run_theta_loop(theta_t, data, **loop)
-        counts = fetch64(theta_ops.counts(theta_t, data))
-        if need_posteriors:
-            fh, fn = theta_ops.final_fracs(theta_t, data)
-            frac_hit, frac_noise = fetch64(fh), fetch64(fn)
-    res = _finish(model, fetch64(theta_t), counts, rounds, frac_hit,
-                  frac_noise, lcp_np, lnp_np, need_posteriors)
+        with span("rsem.em.theta_loop"):
+            theta_t, rounds = theta_ops.run_theta_loop(theta_t, data, **loop)
+        with span("rsem.em.counts"):
+            counts = fetch64(theta_ops.counts(theta_t, data))
+            if need_posteriors:
+                fh, fn = theta_ops.final_fracs(theta_t, data)
+                frac_hit, frac_noise = fetch64(fh), fetch64(fn)
+    with span("rsem.em.finish"):
+        res = _finish(model, fetch64(theta_t), counts, rounds, frac_hit,
+                      frac_noise, lcp_np, lnp_np, need_posteriors)
     res.windows, res.preidx_budget = len(windows), budget
     return res
 
@@ -460,10 +491,10 @@ def _run_em_hybrid(model, ref, bundle, em_cfg: EMConfig,
     else:
         data = theta_ops.scale_conprbs(
             HitsDevice.from_arrays(hits, device),  # cached, as upload's
-            torch.as_tensor(lcp_np).to(device),
-            torch.as_tensor(lnp_np).to(device), M, float(N0))
+            to_device(lcp_np, device), to_device(lnp_np, device), M,
+            float(N0))
         theta_t, rounds = theta_ops.run_theta_loop(
-            torch.as_tensor(theta, dtype=torch.float32).to(device), data,
+            to_device(theta.astype(np.float32), device), data,
             min_round=em_cfg.min_round, max_round=em_cfg.max_round,
             start_round=rounds)
         theta = fetch64(theta_t)
@@ -502,11 +533,14 @@ def run_em(
         raise ValueError(f"unknown EM backend {backend!r}")
     if bundle.cnt.N1 <= 0:
         raise ValueError("No alignable reads")
-    if backend in ("hybrid", "native"):
-        return _run_em_hybrid(model, ref, bundle, em_cfg, need_posteriors,
-                              dev, theta_on_host=backend == "native")
-    return _run_em_device(model, ref, bundle, em_cfg, need_posteriors, dev,
-                          dist)
+    count("em_calls")
+    with span("rsem.em"):
+        if backend in ("hybrid", "native"):
+            return _run_em_hybrid(model, ref, bundle, em_cfg,
+                                  need_posteriors, dev,
+                                  theta_on_host=backend == "native")
+        return _run_em_device(model, ref, bundle, em_cfg, need_posteriors,
+                              dev, dist)
 
 
 def write_theta_file(path: str, theta_raw: np.ndarray, theta: np.ndarray):

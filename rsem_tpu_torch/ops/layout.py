@@ -28,6 +28,10 @@ io.HitArrays). No entry is made for the CPU, where torch.as_tensor
 already shares the numpy buffer. Cached tensors hold device memory for as
 long as their containers live; clear_device_cache() frees them. Nothing
 in the port writes into a layout's tensors.
+
+Every array a layout copies to the device counts its host bytes into the
+`upload_bytes` counter (utils/timing), on the CPU too: a call the cache
+serves counts none.
 """
 
 from __future__ import annotations
@@ -38,6 +42,9 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..utils.device import to_device
+from ..utils.timing import count
 
 # elements of each array checksummed by the cache's fingerprint
 FINGERPRINT_SAMPLE = 4096
@@ -60,6 +67,13 @@ def _array_print(a) -> Optional[tuple]:
         crc = 0
     return (id(a), x.__array_interface__["data"][0], x.shape, x.dtype.str,
             x.strides, crc)
+
+
+def _up(x, device, dtype: torch.dtype) -> torch.Tensor:
+    """One host array of a layout on the device."""
+    t = to_device(x, device, dtype)
+    count("upload_bytes", np.asarray(x).nbytes)
+    return t
 
 
 def _device_key(device) -> torch.device:
@@ -118,18 +132,15 @@ class RefDevice(NamedTuple):
     @classmethod
     def from_reference(cls, ref, device: torch.device) -> "RefDevice":
         """ref: refprep.Reference (cached per device)."""
-        def up(x, dt):
-            return torch.as_tensor(np.ascontiguousarray(x)).to(device, dt)
-
         return _dev_cached(
             ref, ("ref",), device, (ref.codes, ref.offsets, ref.full_len,
                                     ref.tot_len, ref.mask_start),
             lambda: cls(
-                codes=up(ref.codes, torch.uint8),
-                offsets=up(ref.offsets, torch.int64),
-                full_len=up(ref.full_len, torch.int32),
-                tot_len=up(ref.tot_len, torch.int32),
-                mask_start=up(ref.mask_start, torch.int32),
+                codes=_up(ref.codes, device, torch.uint8),
+                offsets=_up(ref.offsets, device, torch.int64),
+                full_len=_up(ref.full_len, device, torch.int32),
+                tot_len=_up(ref.tot_len, device, torch.int32),
+                mask_start=_up(ref.mask_start, device, torch.int32),
             ))
 
 
@@ -146,7 +157,7 @@ class ReadsDevice(NamedTuple):
         columns (paired mates of different widths share one width).
         Cached per device and width."""
         def up(x, dt):
-            t = torch.as_tensor(np.ascontiguousarray(x)).to(device, dt)
+            t = _up(x, device, dt)
             if width is not None and t.dim() == 2 and t.shape[1] < width:
                 t = torch.nn.functional.pad(t, (0, width - t.shape[1]))
             return t.contiguous()
@@ -182,20 +193,17 @@ class HitsDevice(NamedTuple):
     @classmethod
     def from_arrays(cls, ha, device: torch.device) -> "HitsDevice":
         """ha: io.HitArrays (cached per device)."""
-        def up(x, dt):
-            return torch.as_tensor(np.ascontiguousarray(x)).to(device, dt)
-
         return _dev_cached(
             ha, ("hits",), device, (ha.rid, ha.sid, ha.dir, ha.pos,
                                     ha.insert_len, ha.read_offsets),
             lambda: cls(
-                rid=up(ha.rid, torch.int32),
-                sid=up(ha.sid, torch.int32),
-                dir=up(ha.dir, torch.int32),
-                pos=up(ha.pos, torch.int32),
-                insert_len=(up(ha.insert_len, torch.int32)
+                rid=_up(ha.rid, device, torch.int32),
+                sid=_up(ha.sid, device, torch.int32),
+                dir=_up(ha.dir, device, torch.int32),
+                pos=_up(ha.pos, device, torch.int32),
+                insert_len=(_up(ha.insert_len, device, torch.int32)
                             if ha.insert_len is not None else None),
-                read_offsets=up(ha.read_offsets, torch.int64),
+                read_offsets=_up(ha.read_offsets, device, torch.int64),
             ))
 
 

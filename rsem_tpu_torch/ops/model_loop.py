@@ -45,9 +45,11 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..parallel.distributed import Dist, all_reduce_
+from ..utils.device import to_device
 from .conprb import (
     LOG_EPS,
     NEG_INF,
@@ -260,12 +262,12 @@ def build_model_loop_data(
             torch.isfinite(lp_static),
             lp_static - torch.where(torch.isfinite(r0), r0, 0.0), NEG_INF)
 
-    npro_c = torch.as_tensor(npro_c, dtype=torch.float32).reshape(-1)
+    npro_c = np.asarray(npro_c, dtype=np.float32).reshape(-1)
     return ModelLoopData(
         lp_static=lp_static, log_mw_h=log_mw_h, lnp_static=lnp_static,
         sid=sid, rid=rid, s0=s0, s0_hit=s0[rid], pre=pre,
-        npro_c=npro_c[: cfg.npro_keys()].to(dev),
-        n0=torch.tensor(float(n0), dtype=torch.float64, device=dev), **kw)
+        npro_c=to_device(npro_c[: cfg.npro_keys()], dev),
+        n0=to_device(np.array(float(n0)), dev), **kw)
 
 
 def tables_from_model(cfg: KernelConfig, model: Dict[str, torch.Tensor]

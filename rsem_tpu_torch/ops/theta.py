@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..constants import MAX_ROUND, MIN_ROUND, STOP_CRITERIA, THETA_CUT
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, fetch_list, resolve_device
 from . import _build
 from .layout import HitsDevice
 
@@ -326,7 +326,7 @@ def run_theta_loop(theta0: torch.Tensor, data: ThetaData,
     while True:
         n = _segment_length(rounds, min_round, max_round, segment)
         rounds_fn(state, data, n)
-        tot = state.tot[:n].tolist()
+        tot = fetch_list(state.tot[:n])
         stop = _first_stop(rounds, tot, min_round, max_round)
         if progress is not None:
             for i in range(stop + 1 if stop >= 0 else n):

@@ -27,6 +27,7 @@ write the same files.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import shutil
 import sys
@@ -268,7 +269,7 @@ def calculate_expression(
     `main`'s). Runs the EM (and Gibbs and CI when asked for) on CUDA unless
     device="cpu" is given; joins the process group the environment asks
     for (the module docstring)."""
-    from ..utils.timing import StageTimer, maybe_profile
+    from ..utils.timing import StageTimer, maybe_profile, tracing
 
     cfg = cfg or ExpressionConfig()
     t_start = time.time()
@@ -351,12 +352,15 @@ def calculate_expression(
     # ---- EM ----
     need_posteriors = ((not cfg.no_bam_output) or cfg.keep_intermediate_files
                        or posterior)
+    # with --time the EM's own spans become comment lines of the .time file
+    em_trace = tracing() if cfg.record_time else contextlib.nullcontext([])
     with timer.stage("em"), maybe_profile(
-            cfg.profile_dir if writer else None):
+            cfg.profile_dir if writer else None), em_trace as em_spans:
         model = GenerativeModel(spec, ref)
         model.estimate_from_stats(bundle.stats)
         em = run_em(model, ref, bundle, EMConfig(verbose=not quiet),
                     need_posteriors=need_posteriors, device=dev, dist=dist)
+    timer.add_spans(em_spans)
 
     if writer:
         model.write(f"{stat}.model")
@@ -635,7 +639,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write per-stage wall-clock to sample_name.time")
     p.add_argument("--temporary-folder", default=None)
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of the EM stage here")
+                   help="write a torch.profiler trace of the EM stage here "
+                   "(it carries the EM's rsem.* ranges beside the device "
+                   "work)")
     return p
 
 
