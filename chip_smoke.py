@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (rsem_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--k3-parent DIR]
+    python3 chip_smoke.py [--k3-parent DIR] [--estep]
 
 Needs a CUDA device and nvcc (built with the kernels at first use).
 Imports nothing of JAX or of the JAX package. Phases, each of which exits
@@ -21,6 +21,11 @@ non-zero on failure:
     noise shape). Then the theta loop forced to
     500 rounds (min_round = max_round = 500) on the same frozen data, at
     segments of 1, 16, theta.SEGMENT and 64 rounds: wall ms per round.
+ 3b. the fused loop's E-step statistics kernel at a bulk sample's shapes
+    (13.5M aligned pairs, ~37M alignments, M = 73,599, paired with
+    est-RSPD) against its plain version and the ops it took over (frac
+    rtol 1e-6, f64 sums rtol 1e-6), each timed beside the bound; with
+    --estep, phases 1, 2 and 3b alone.
  4. drive the main path: rsem_tpu_torch.engine.em.run_em on that workload
     (its default: the fused model loop, then the theta loop), launch
     counts zeroed just before and read just after (every kernel must have
@@ -326,6 +331,8 @@ SPREAD_PAIRS, SPREAD_READS, SPREAD_RATIO = 10_000, 50, 1.1
 SPREAD_BURNIN, SPREAD_SAMPLES = 1000, 8000
 # the run at a real sample's size: paired-end 150 bp, ~35M alignments
 LARGE_READS, LARGE_READ_LEN = 14_000_000, 150
+# phase 3b: the E-step statistics kernel at a bulk sample's shapes
+ESTEP_READS, ESTEP_M = 13_500_000, 73_599
 INGEST_READS, INGEST_M = 420_000, 2000  # ~1.04M BAM records
 # phase 11: reads simulated at full width (single end) and on the golden
 # reference (paired end); noise share theta0
@@ -733,6 +740,111 @@ def phase_kernels(ref, bundle, model, dev, mem_rate, op_rate, k3):
     return rows, k1_in
 
 
+def phase_estep(dev, mem_rate, op_rate, n_reads: int = ESTEP_READS,
+                M: int = ESTEP_M):
+    """The fused loop's E-step statistics kernel at a bulk sample's shapes
+    (tcga_bulk_em's: 13.5M aligned pairs, ~37M alignments, M = 73,599,
+    paired with est-RSPD, 999 fragment-length slots, 20 read-start bins;
+    inputs from testing.synthetic_estep_inputs): against its plain version
+    (frac rtol 1e-6, the f64 sums rtol 1e-6) and against the ops it took
+    over (the loop's former inline E-step: five float64 index_add_ and the
+    elementwise ops around them, on int64 indices with s0 gathered per
+    hit), each timed, beside the bound. Returns the kernel's row."""
+    import torch
+
+    from rsem_tpu_torch.ops import model_loop
+    from rsem_tpu_torch.testing import synthetic_estep_inputs
+
+    cfg, data, lp, lnp, th = synthetic_estep_inputs(n_reads, M, True, True,
+                                                    0, dev)
+    H, N = int(data.sid.shape[0]), n_reads
+    sizes = [M + 1, cfg.gld_ub - cfg.gld_lb, cfg.B]
+    red = torch.zeros(sum(sizes), dtype=torch.float64, device=dev)
+    parts = red.split(sizes)
+    frac = torch.empty(H, dtype=torch.float32, device=dev)
+    frac_noise = torch.empty(N, dtype=torch.float32, device=dev)
+
+    def kernel():
+        model_loop.estep_stats(cfg, data, lp, lnp, th, *parts, frac,
+                               frac_noise)
+
+    def plain():
+        model_loop.estep_stats_plain(cfg, data, lp, lnp, th, *parts, frac,
+                                     frac_noise)
+
+    # the ops the kernel took over, as the loop ran them
+    sid64, rid64 = data.sid.long(), data.rid.long()
+    ins64, b0_64, b1_64 = (data.ins_idx.long(), data.rs_b0.long(),
+                           data.rs_b1.long())
+    s0_hit = data.s0[rid64]
+    denom = torch.empty(N, dtype=torch.float64, device=dev)
+    counts, gld, rspd = parts
+
+    def before():
+        ltheta = model_loop._safe_log(th)
+        w = torch.exp((lp + ltheta[sid64] - s0_hit).clamp(
+            max=model_loop.MAX_DRIFT))
+        w0 = torch.exp((lnp + ltheta[0] - data.s0).clamp(
+            max=model_loop.MAX_DRIFT))
+        denom.zero_().index_add_(0, rid64, w.double())
+        d = denom + w0
+        inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0),
+                          0.0).to(torch.float32)
+        f = w * inv[rid64]
+        fn = w0 * inv
+        red.zero_()
+        counts.index_add_(0, sid64, f.double())
+        counts[0] += fn.sum(dtype=torch.float64)
+        gld.index_add_(0, ins64, f.double())
+        rspd.index_add_(0, b0_64, (f * data.rs_w0).double())
+        rspd.index_add_(0, b1_64, (f * data.rs_w1).double())
+        return f, fn
+
+    f_b, fn_b = before()
+    want = red.clone()
+    red.zero_()
+    kernel()
+    torch.cuda.synchronize()
+    err = max(close(frac, f_b, 1e-6, 0.0, "E-step kernel frac"),
+              close(frac_noise, fn_b, 1e-6, 0.0, "E-step kernel frac_noise"))
+    for (a, b), what in zip(zip(red.split(sizes), want.split(sizes)),
+                            ("counts", "gld", "rspd")):
+        close(a, b, 1e-6, 0.0, f"E-step kernel {what}")
+    del f_b, fn_b, want
+    k_ms = time_cuda(kernel)
+    p_ms = time_cuda(plain, samples=5, warm=1)
+    b_ms = time_cuda(before, samples=5, warm=1)
+    # each input byte read once, each output written once: per hit lp,
+    # sid, rid, the insert slot, two bins and their weights, frac; per read
+    # lnp, s0, its offset, frac_noise; theta, counts and the histograms
+    nbytes = (H * (8 * 4 + 4) + N * (4 + 4 + 8 + 4) + 8
+              + (M + 1) * (4 + 8) + (sizes[1] + sizes[2]) * 8)
+    # per hit: log, exp, 3 adds, the denominator's add, a product, the
+    # count's, the slot's and two bins' adds and products; per read likewise
+    nops = H * 12 + N * 6
+    bnd_ms, bnd_by = bound(nbytes, nops, mem_rate, op_rate)
+    row = dict(
+        name="estep_stats", id="E", route="cuda",
+        source="rsem_tpu_torch/csrc/model_estep.cu",
+        replaces="none (stands for seg_sum_sorted and onehot_scatter in "
+                 "rsem_tpu/ops/model_loop.py)",
+        shape=f"CSR H={H} N={N} M+1={M + 1}, paired, est-RSPD "
+              f"({sizes[1]} fragment-length slots, {sizes[2]} bins)",
+        max_abs_err=err, tolerance="frac rtol 1e-6; f64 sums rtol 1e-6 "
+                                   "of the ops it replaced",
+        ms=k_ms[0], ms_min=k_ms[1], ms_max=k_ms[2], plain_ms=p_ms[0],
+        before_ms=b_ms[0], before_ms_min=b_ms[1], before_ms_max=b_ms[2],
+        before="the loop's former inline E-step: five float64 index_add_ "
+               "and the elementwise ops around them",
+        library_ms=None, bound_ms=bnd_ms, bound_by=bnd_by)
+    log(f"E estep_stats at bulk shapes (H={H} N={N}): kernel "
+        f"{k_ms[0]:.4f} ms [{k_ms[1]:.4f}, {k_ms[2]:.4f}], before "
+        f"{b_ms[0]:.3f} ms [{b_ms[1]:.3f}, {b_ms[2]:.3f}], plain "
+        f"{p_ms[0]:.3f} ms, bound {bnd_ms:.4f} ms ({bnd_by}), max abs err "
+        f"{err:.3g}")
+    return row
+
+
 def phase_theta_loop(data, dev, rounds: int = 500, samples: int = 3):
     """The theta loop forced to `rounds` rounds (min_round = max_round) on
     the frozen data, from a uniform theta, with segments of 1 round (a
@@ -823,9 +935,11 @@ def phase_main_path(ref, bundle, model0, dev):
 
     from rsem_tpu_torch.engine import em as em_mod
     from rsem_tpu_torch.engine.em import EMConfig, run_em
+    from rsem_tpu_torch.ops import model_loop
 
     wrappers = kernel_wrappers()
     del wrappers["sweep_part"]  # not on this path
+    wrappers["estep_stats"] = model_loop.estep_stats  # the fused loop's
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -4084,6 +4198,9 @@ def main(argv=None) -> int:
                     help="another tree (e.g. the parent commit unpacked "
                          "with git archive) whose K3 is timed beside this "
                          "tree's at every K3 input")
+    ap.add_argument("--estep", action="store_true",
+                    help="phases 1, 2 and 3b alone: the E-step statistics "
+                         "kernel at a bulk sample's shapes")
     ap.add_argument("--rank16", nargs=3, metavar=("DIR", "COORD", "RANK"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4097,11 +4214,16 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if args.estep:
+        print(json.dumps({"kernels": [phase_estep(dev, mem_rate, op_rate)]}))
+        return 0
     k3 = K3Shapes(mem_rate, op_rate,
                   k3_parent(args.k3_parent) if args.k3_parent else None)
     ref, bundle, model = make_workload()
     rows, k1_in = phase_kernels(ref, bundle, model, dev, mem_rate, op_rate,
                                 k3)
+    estep_row = phase_estep(dev, mem_rate, op_rate)
+    torch.cuda.empty_cache()
     # every phase that uploads a layout drops it from the device cache at
     # its end: later phases plan windows and budgets from free memory
     from rsem_tpu_torch.ops.layout import clear_device_cache
@@ -4223,6 +4345,10 @@ def main(argv=None) -> int:
                 "real_size": streamed["real_size"]["launches"]}
         r["cache_launches"] = cache_launches.get(r["name"], 0)
         r["kernel_ms"] = r["ms"]
+    # the E-step statistics kernel runs in the fused loop alone
+    estep_row["launches"] = launches["estep_stats"]
+    estep_row["kernel_ms"] = estep_row["ms"]
+    rows.append(estep_row)
     log(json.dumps({"run_em": {"cold_s": cold, "warm_s": warm,
                                "rounds": rounds},
                     "fused_vs_per_round": fused, "backends": backends,

@@ -59,20 +59,6 @@ constexpr float kThetaCut = 1e-7f;  // THETA_CUT
 constexpr float kStop = 1e-3f;      // STOP_CRITERIA
 enum { kNoise = 0, kTotal = 1 };    // slots of acc
 
-// Sum over the block (butterfly in each warp, then the warps in order);
-// the result is valid in thread 0.
-__device__ double block_sum(double v, double* s_warp) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(rsem::kFullMask, v, o);
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  double t = 0.0;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < kWarps; ++i) t += s_warp[i];
-  return t;
-}
-
 __global__ void __launch_bounds__(kThreads) reads_kernel(
     const int32_t* __restrict__ sid, const int32_t* __restrict__ rid,
     const float* __restrict__ cps, const float* __restrict__ ncs,
@@ -132,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) reads_kernel(
     }
     __syncwarp();
   }
-  const double s = block_sum(my_noise, s_warp);
+  const double s = rsem::block_sum<kWarps>(my_noise, s_warp);
   if (threadIdx.x == 0 && s != 0.0) atomicAdd(acc + kNoise, s);
 }
 
@@ -157,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) counts_kernel(
     counts[0] = c0;
     mine += c0;
   }
-  const double s = block_sum(mine, s_warp);
+  const double s = rsem::block_sum<kWarps>(mine, s_warp);
   if (threadIdx.x == 0) atomicAdd(acc + kTotal, s);
 }
 

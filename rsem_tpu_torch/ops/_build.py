@@ -35,6 +35,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
+_F32 = ctypes.c_float
 _F64 = ctypes.c_double
 SIGNATURES = {
     "rsem_gather_sum": [_P, _I64, _P, _I64, _I32, _P, _P],
@@ -45,6 +46,9 @@ SIGNATURES = {
                           _P, _P, _I32, _P],
     "rsem_theta_partial": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
     "rsem_theta_finish": [_I64, _F64, _P, _P, _P, _P, _P, _P, _P],
+    "rsem_estep_stats": [_P, _P, _P, _P, _P, _P, _P, _I64, _P, _I32, _P, _P,
+                         _P, _P, _I32, _F32, _I32, _I32, _P, _P, _P, _P, _P,
+                         _P],
     "rsem_gibbs_sweep": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I64,
                          _I64, _U32, _U32, _U32, _P],
 }

@@ -817,3 +817,67 @@ def bai_finds_all(bam: str, bai: str) -> int:
                              f"{v}) is not found through {bai}")
         n += 1
     return n
+
+
+def synthetic_estep_inputs(n_reads: int, M: int, paired: bool,
+                           est_rspd: bool, seed: int, device,
+                           mean_extra_hits: float = 1.7, max_hits: int = 200,
+                           gld_span: int = 999, B: int = 20):
+    """(KernelConfig, ModelLoopData, lp [H], lnp [N], theta [M+1]) for one
+    round of the fused loop's E-step statistics (ops/model_loop.
+    estep_stats), drawn on `device`: reads of 1 + Poisson(mean_extra_hits)
+    hits (at most max_hits), each hit's log conprb N(-30, 4) with 5% -inf,
+    the noise one N(-34, 3), s0 the per-read max as the loop freezes it,
+    theta Dirichlet-like with 1% zeros, fragment-length slots N(250, 60)
+    and read-start bins denser at the 3' end, a second bin on 20% of the
+    hits. Only the fields the E-step reads are filled."""
+    import torch
+
+    from .ops.layout import KernelConfig
+    from .ops.model_loop import ModelLoopData
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def rand(n):
+        return torch.rand(n, generator=g, device=device)
+
+    def normal(n, mean, sd):
+        return torch.randn(n, generator=g, device=device) * sd + mean
+
+    nh = (1 + torch.poisson(torch.full((n_reads,), mean_extra_hits,
+                                       device=device), generator=g)
+          ).clamp(max=max_hits).long()
+    off = torch.zeros(n_reads + 1, dtype=torch.int64, device=device)
+    torch.cumsum(nh, 0, out=off[1:])
+    H = int(off[-1])
+    rid = torch.repeat_interleave(
+        torch.arange(n_reads, dtype=torch.int32, device=device), nh,
+        output_size=H)
+    sid = (rand(H) * M).long().clamp(max=M - 1).int() + 1
+    lp = normal(H, -30.0, 4.0)
+    lp[rand(H) < 0.05] = float("-inf")
+    lnp = normal(n_reads, -34.0, 3.0)
+    s0 = torch.full((n_reads,), float("-inf"), device=device)
+    s0 = torch.maximum(s0.scatter_reduce_(0, rid.long(), lp, "amax"), lnp)
+    s0 = torch.where(torch.isfinite(s0), s0, 0.0)
+    theta = -torch.log(rand(M + 1).clamp(min=1e-12))
+    theta[rand(M + 1) < 0.01] = 0.0
+    theta = (theta / theta.sum()).contiguous()
+    cfg = KernelConfig(
+        paired=paired, has_qual=True, est_rspd=est_rspd, use_mld=paired,
+        B=B, seed_len=25, gld_lb=0, gld_ub=gld_span, mld_lb=0, mld_ub=1,
+        max_read_len=50, pro_len=100)
+    kw = {}
+    if paired:
+        kw["ins_idx"] = normal(H, 250.0, 60.0).round().clamp(
+            0, gld_span - 1).int()
+    if est_rspd:
+        b0 = (rand(H).sqrt() * B).long().clamp(max=B - 1)
+        kw.update(rs_b0=b0.int(), rs_w0=rand(H),
+                  rs_b1=(b0 + 1).clamp(max=B - 1).int(),
+                  rs_w1=torch.where(rand(H) < 0.2, rand(H), 0.0))
+    data = ModelLoopData(
+        lp_static=None, log_mw_h=None, lnp_static=None, sid=sid, rid=rid,
+        read_offsets=off, s0=s0, pre=None, npro_c=None, n0=None, **kw)
+    return cfg, data, lp, lnp, theta

@@ -19,10 +19,11 @@ costs ~12 us even with no profiler running).
 Counters. `count(name, n)` adds to a process-wide integer, always on:
 host reads of device memory (`d2h_reads`), copies to a CUDA device that
 the host waits for (`h2d_copies`), the layout's host bytes copied to the
-device (`upload_bytes`) and `run_em` calls (`em_calls`).
+device (`upload_bytes`), `run_em` calls (`em_calls`) and launches of
+the fused loop's E-step statistics kernel (`model_estep_launches`).
 `counters()` returns a snapshot, `reset_counters()` clears them. The
-kernels' `.launches` attributes (ops/table, theta, conprb, gibbs) are
-counters of their own.
+kernels' `.launches` attributes (ops/table, theta, conprb, gibbs,
+model_loop) are counters of their own.
 
 Counterpart of rsem_tpu/utils/timing.py; `maybe_profile` records a
 torch.profiler trace instead of a jax.profiler one.

@@ -13,7 +13,9 @@ on the layout's own table and on one 40 times as large, and on layouts
 dealt over mostly empty tiles (the posterior-spread test's input); the
 Gibbs set-up on the card (layout and initial state) against the CPU's; plus
 the fused
-model loop against the CPU and under sync debug mode "error", run_em,
+model loop against the CPU and under sync debug mode "error", its E-step
+statistics kernel against the plain version at the cells and the bulk
+cell's sizes (and once a round in run_em), run_em,
 run_gibbs and run_ci on the card against the CPU and the goldens (with an
 allele grouping too), and
 windowed PreIdx: K4 over a window's views, K3 into one accumulator across
@@ -532,6 +534,76 @@ def test_model_loop_k3_allocates_nothing(dev, monkeypatch):
     model_loop.run_model_loop(*args[:4], 3, *args[4:])
     assert grown == [0] * 12
     assert None not in accs and len(accs) == 2
+
+
+@pytest.mark.parametrize("paired", [True, False])
+@pytest.mark.parametrize("n_reads", [900_000, 13_500_000])
+def test_estep_stats_matches_plain(dev, n_reads, paired):
+    """The fused loop's E-step statistics kernel against its plain version
+    on the card, at the cells cell's size (0.9M aligned pairs, ~2.4M hits)
+    and a bulk sample's (13.5M, ~36M hits), M = 73,599, paired with
+    est-RSPD and single-end: frac and frac_noise within float32 rtol 1e-6
+    (the weights are the same bits; the f64 denominators are summed in
+    another order); the kernel's f64 counts and histograms within rtol
+    1e-12 of the same sums over its own fractions on the CPU (atomic
+    order), and within 1e-6 of the plain version's."""
+    from rsem_tpu_torch.ops import model_loop
+    from rsem_tpu_torch.testing import synthetic_estep_inputs
+    from rsem_tpu_torch.utils import timing
+
+    M = 73_599
+    cfg, data, lp, lnp, th = synthetic_estep_inputs(n_reads, M, paired,
+                                                    paired, 5, dev)
+    H = data.sid.shape[0]
+    sizes = [M + 1, cfg.gld_ub - cfg.gld_lb if paired else 0,
+             cfg.B if paired else 0]
+
+    def run(fn):
+        red = torch.zeros(sum(sizes), dtype=torch.float64, device=dev)
+        frac = torch.empty(H, dtype=torch.float32, device=dev)
+        frac_noise = torch.empty(n_reads, dtype=torch.float32, device=dev)
+        fn(cfg, data, lp, lnp, th, *red.split(sizes), frac, frac_noise)
+        return [frac.cpu(), frac_noise.cpu(), *red.cpu().split(sizes)]
+
+    n, c = model_loop.estep_stats.launches, timing.counters().get(
+        "model_estep_launches", 0)
+    got = run(model_loop.estep_stats)
+    assert model_loop.estep_stats.launches == n + 1
+    assert timing.counters()["model_estep_launches"] == c + 1
+    want = run(model_loop.estep_stats_plain)
+    for what, g, w in zip(["frac", "frac_noise"], got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0, msg=what)
+    frac, frac_noise = got[:2]
+    own = [torch.zeros(n, dtype=torch.float64) for n in sizes]
+    own[0].index_add_(0, data.sid.cpu().long(), frac.double())
+    own[0][0] += frac_noise.double().sum()
+    if paired:
+        own[1].index_add_(0, data.ins_idx.cpu().long(), frac.double())
+        own[2].index_add_(0, data.rs_b0.cpu().long(),
+                          (frac * data.rs_w0.cpu()).double())
+        own[2].index_add_(0, data.rs_b1.cpu().long(),
+                          (frac * data.rs_w1.cpu()).double())
+    for what, g, o, w in zip(["counts", "gld", "rspd"], got[2:], own,
+                             want[2:]):
+        torch.testing.assert_close(g, o, rtol=1e-12, atol=0, msg=what)
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0, msg=what)
+
+
+def test_run_em_launches_estep_once_a_model_round(dev):
+    """A fused run_em on the card launches the E-step statistics kernel
+    once per model-update round: model_estep_launches rises by exactly
+    10."""
+    import copy
+
+    from rsem_tpu_torch.utils import timing
+
+    ref, bundle, _spec, model = synthetic_dataset(
+        n_reads=3000, M=80, read_len=36, tx_len=400, paired=True,
+        has_qual=True, mean_extra_hits=1.5, seed=11, est_rspd=True)
+    before = timing.counters().get("model_estep_launches", 0)
+    res = em.run_em(copy.deepcopy(model), ref, bundle, device=dev)
+    assert res.rounds > 10
+    assert timing.counters()["model_estep_launches"] - before == 10
 
 
 @pytest.mark.parametrize("table", ["M", "relabelled"])

@@ -285,3 +285,130 @@ def test_polya_takes_per_round_path(monkeypatch):
                          need_posteriors=False, device="cpu")
         assert len(calls) == n
         assert res.rounds >= 20 and np.isfinite(res.counts).all()
+
+
+def _former_estep(cfg, data, lp, lnp, theta, M):
+    """The fused loop's E-step statistics as its rounds computed them
+    inline before the E-step statistics kernel took them over (int64
+    indices, s0 gathered per hit once)."""
+    rid, sid = data.rid.long(), data.sid.long()
+    s0_hit = data.s0[rid]
+    ltheta = tml._safe_log(theta)
+    w = torch.exp((lp + ltheta[sid] - s0_hit).clamp(max=tml.MAX_DRIFT))
+    w0 = torch.exp((lnp + ltheta[0] - data.s0).clamp(max=tml.MAX_DRIFT))
+    denom = torch.empty(data.s0.shape[0], dtype=torch.float64)
+    denom.zero_().index_add_(0, rid, w.double())
+    d = denom + w0
+    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0),
+                      0.0).to(torch.float32)
+    frac = w * inv[rid]
+    frac_noise = w0 * inv
+    sizes = [M + 1, cfg.gld_ub - cfg.gld_lb if cfg.paired else 0,
+             cfg.B if cfg.est_rspd else 0]
+    counts, gld, rspd = torch.zeros(sum(sizes), dtype=torch.float64).split(
+        sizes)
+    counts.index_add_(0, sid, frac.double())
+    counts[0] += frac_noise.sum(dtype=torch.float64)
+    if cfg.paired:
+        gld.index_add_(0, data.ins_idx.long(), frac.double())
+    if cfg.est_rspd:
+        rspd.index_add_(0, data.rs_b0.long(), (frac * data.rs_w0).double())
+        rspd.index_add_(0, data.rs_b1.long(), (frac * data.rs_w1).double())
+    return frac, frac_noise, counts, gld, rspd
+
+
+ESTEP_CASES = {
+    "se": dict(paired=False, est_rspd=False),
+    "pe_rspd": dict(paired=True, est_rspd=True),
+    "dead_read": dict(paired=True, est_rspd=True, dead=3),
+    "long_read": dict(paired=False, est_rspd=True, long=5),
+    "no_noise": dict(paired=True, est_rspd=False, noise=False),
+}
+
+
+@pytest.mark.parametrize("name", list(ESTEP_CASES))
+def test_estep_stats_plain_matches_former_inline(name):
+    """The E-step statistics' plain version (what the CPU runs) equals the
+    loop's former inline arithmetic bit for bit: single-end without
+    est-RSPD; paired with est-RSPD; a read whose hits and noise term are
+    all -inf (denominator 0: inv 0, no fraction); a read of 200 hits; a
+    sample without noise mass. Each read's fractions and its noise
+    fraction sum to 1 where its denominator is not 0."""
+    c = ESTEP_CASES[name]
+    rng = np.random.default_rng(len(name))
+    N, M, B, span = 40, 25, 20, 30
+    nh = rng.integers(1, 5, size=N)
+    if "long" in c:
+        nh[c["long"]] = 200
+    off = np.concatenate([[0], np.cumsum(nh)])
+    H = int(off[-1])
+    rid = torch.as_tensor(np.repeat(np.arange(N), nh), dtype=torch.int32)
+    lp = torch.as_tensor(rng.normal(-30.0, 4.0, H), dtype=torch.float32)
+    lp[torch.as_tensor(rng.random(H) < 0.1)] = float("-inf")
+    lnp = torch.as_tensor(rng.normal(-34.0, 3.0, N), dtype=torch.float32)
+    if not c.get("noise", True):
+        lnp[:] = float("-inf")
+    if "dead" in c:
+        r = c["dead"]
+        lp[off[r]:off[r + 1]] = float("-inf")
+        lnp[r] = float("-inf")
+    s0 = torch.full((N,), float("-inf")).scatter_reduce_(
+        0, rid.long(), lp, "amax", include_self=True)
+    s0 = torch.maximum(s0, lnp)
+    s0 = torch.where(torch.isfinite(s0), s0, 0.0)
+    theta = torch.as_tensor(rng.dirichlet(np.ones(M + 1)),
+                            dtype=torch.float32)
+    theta[7] = 0.0  # log theta -inf
+    cfg = TKernelConfig(
+        paired=c["paired"], has_qual=True, est_rspd=c["est_rspd"],
+        use_mld=c["paired"], B=B, seed_len=25, gld_lb=0, gld_ub=span,
+        mld_lb=0, mld_ub=1, max_read_len=36, pro_len=100)
+    b0 = rng.integers(0, B, H)
+    kw = {}
+    if cfg.paired:
+        kw["ins_idx"] = torch.as_tensor(rng.integers(0, span, H),
+                                        dtype=torch.int32)
+    if cfg.est_rspd:
+        kw.update(
+            rs_b0=torch.as_tensor(b0, dtype=torch.int32),
+            rs_w0=torch.as_tensor(rng.random(H), dtype=torch.float32),
+            rs_b1=torch.as_tensor(np.minimum(b0 + 1, B - 1),
+                                  dtype=torch.int32),
+            rs_w1=torch.as_tensor(np.where(rng.random(H) < 0.3,
+                                           rng.random(H), 0.0),
+                                  dtype=torch.float32))
+    data = tml.ModelLoopData(
+        lp_static=None, log_mw_h=None, lnp_static=None,
+        sid=torch.as_tensor(rng.integers(1, M + 1, H), dtype=torch.int32),
+        rid=rid, read_offsets=torch.as_tensor(off), s0=s0, pre=None,
+        npro_c=None, n0=None, **kw)
+
+    sizes = [M + 1, span if cfg.paired else 0, B if cfg.est_rspd else 0]
+    counts, gld, rspd = torch.zeros(sum(sizes), dtype=torch.float64).split(
+        sizes)
+    frac, frac_noise = torch.empty(H), torch.empty(N)
+    tml.estep_stats(cfg, data, lp, lnp, theta, counts, gld, rspd, frac,
+                    frac_noise)
+    want = _former_estep(cfg, data, lp, lnp, theta, M)
+    for what, g, w in zip(("frac", "frac_noise", "counts", "gld", "rspd"),
+                          (frac, frac_noise, counts, gld, rspd), want):
+        assert torch.equal(g, w), what
+
+    per_read = torch.zeros(N, dtype=torch.float64).index_add_(
+        0, rid.long(), frac.double()) + frac_noise.double()
+    # a read's denominator is 0 where no term of it is finite
+    hit_ok = torch.isfinite(lp) & (theta[data.sid.long()] > 0)
+    live = torch.isfinite(lnp) | torch.zeros(N, dtype=torch.bool).index_add_(
+        0, rid, hit_ok)
+    if "dead" in c:
+        r = c["dead"]
+        assert not live[r] and per_read[r] == 0
+        assert not frac[off[r]:off[r + 1]].any()
+    assert torch.equal(per_read == 0, ~live)
+    torch.testing.assert_close(per_read[live],
+                               torch.ones(int(live.sum()),
+                                          dtype=torch.float64),
+                               rtol=0, atol=1e-6)
+    if not c.get("noise", True):
+        assert not frac_noise.any() and counts[0] == 0
+    assert float(counts.sum()) == pytest.approx(float(live.sum()), abs=1e-5)
