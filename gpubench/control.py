@@ -1,8 +1,9 @@
-"""The control of a cell's comparison: the plain reference put in the
-program's place, computed one precision lower (reference/em.py CONTROL:
-bfloat16 values and position sums, float32 sums over hits and reads), and
-judged by the same numbers as the program. Each number's upper reading is
-the smallest the control gives.
+"""The control of a cell's comparison: the plain reference of the cell's
+path put in the program's place, computed one precision lower (its
+reference at "control"; for `em`, reference/em.py CONTROL: bfloat16 values
+and position sums, float32 sums over hits and reads), and judged by the
+path's numbers as the program is. Each number's upper reading is the
+smallest the control gives.
 
     python3 gpubench/control.py --workload <cell> --seeds 1 2 3 [--samples 2]
 
@@ -26,35 +27,30 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-from gpubench.harness import HERE, load_cell  # noqa: E402
+from gpubench.harness import HERE, load_cell, load_path  # noqa: E402
 
 
 def control_numbers(cell, seed: int, samples: int, device: str,
-                    precision=None) -> Dict[str, float]:
+                    precision: str = "control") -> Dict[str, float]:
     """The largest of each number over the first `samples` distinct
-    samples of `seed`: the control's values (each at its own stop)
-    against the reference's. `precision` replaces the control's (STATED
-    reads the configuration's own precision the same way)."""
+    samples of `seed`: the path's reference at `precision` ("control", or
+    "stated" for the configuration's own precision; each at its own stop)
+    against its reference at "reference", and the two round counts where
+    the path's reference has them."""
     from gpubench.gen import synth
-    from gpubench.reference import compare
-    from gpubench.reference.em import (CONTROL, REFERENCE,
-                                       reference_expression)
 
+    path = load_path(cell)
     ann = synth.make_annotation(cell.config, cell.traffic, device)
     worst: Dict[str, float] = {}
     for k in range(samples):
         raw = synth.make_sample(ann, cell.config, cell.traffic, seed, k,
                                 device)
-        ctl = reference_expression(ann, raw, cell.config, device,
-                                   precision or CONTROL)
-        ref = reference_expression(ann, raw, cell.config, device, REFERENCE)
-        units = compare.read_units(ref, ann.iso_gene, ann.n_genes)
-        values = {"iso_count": ctl.counts, "iso_tpm": ctl.tpm,
-                  "iso_fpkm": ctl.fpkm, "gene_count": ctl.gene_counts,
-                  "gene_tpm": ctl.gene_tpm, "gene_fpkm": ctl.gene_fpkm}
-        g = compare.gaps(values, ref, units)
-        g["its_rounds"] = ctl.rounds
-        g["reference_rounds"] = ref.rounds
+        ctl = path.reference(ann, raw, cell.config, device, precision)
+        ref = path.reference(ann, raw, cell.config, device, "reference")
+        g = path.gaps(ctl.values, ref, ann)
+        if hasattr(ref, "rounds"):
+            g["its_rounds"] = ctl.rounds
+            g["reference_rounds"] = ref.rounds
         for name, v in g.items():
             worst[name] = max(worst.get(name, 0.0), float(v))
     return worst
@@ -67,11 +63,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--samples", type=int, default=2)
     p.add_argument("--stated", action="store_true",
                    help="also read the configuration's own precision "
-                        "(float32 values, float64 sums) against the "
-                        "reference: a witness of the sound runs' readings")
+                        "(for em: float32 values, float64 sums) against "
+                        "the reference: a witness of the sound runs' "
+                        "readings")
     a = p.parse_args(argv)
-    from gpubench.reference.em import STATED
-
     cell = load_cell(HERE.parent, a.workload)
     for seed in a.seeds:
         t0 = time.perf_counter()
@@ -79,7 +74,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "control": control_numbers(cell, seed, a.samples, "cuda:0")}
         if a.stated:
             line["stated"] = control_numbers(cell, seed, a.samples,
-                                             "cuda:0", STATED)
+                                             "cuda:0", "stated")
         line["seconds"] = time.perf_counter() - t0
         print(json.dumps(line), flush=True)
     return 0

@@ -6,23 +6,29 @@
 Everything a run does is found by name from the cell's entry in the
 repository's BENCHMARK.json: `workloads/<cell>.json` (its configuration,
 traffic mix, chips and the limits of its comparison),
-`configs/<config>.json`, `traffic/<traffic>.json`, and one reader
+`configs/<config>.json`, `traffic/<traffic>.json`, the configuration's
+estimation path `paths/<path>.py` (`em` where the configuration names
+none; `paths/__init__.py` says what a path holds), and one reader
 `metrics/<metric>.py` per metric it reports. A run
 
 1. refuses without the CUDA cards the cell asks for (exit 3, no result);
-2. sets up: makes the annotation and the cell's distinct samples on the
+2. refuses (exit 5, no result) where the path's module is missing or lacks
+   a member of the interface, or the cell's `limits` do not name exactly
+   the path's `NUMBERS`;
+3. sets up: makes the annotation and the cell's distinct samples on the
    card from the seed, copies them to host memory as ingest leaves them,
-   and runs one sample, so that the kernels are built and the allocator is
-   warm (all of this is `setup_s`, counted from the process's start);
-3. measures for `--seconds` seconds: samples one after another, cycling
+   and runs one sample through the path, so that the kernels are built and
+   the allocator is warm (all of this is `setup_s`, counted from the
+   process's start);
+4. measures for `--seconds` seconds: samples one after another, cycling
    through the distinct samples; the sample in flight at the end is
    finished and counted;
-4. with `--trace 1`, then traces a few more samples under torch.profiler;
-5. reads the device's memory peak, frees the program's state, and works
-   out each distinct sample's expression values again with the plain
-   reference (`reference/`), judging every result of the window;
-6. refuses (exit 4, no result) if JAX or the JAX package was loaded;
-7. prints the compared numbers beside their limits on standard error and
+5. with `--trace 1`, then traces a few more samples under torch.profiler;
+6. reads the device's memory peak, frees the program's state, and works
+   out each distinct sample's values again with the path's plain
+   reference, judging every result of the window with the path's numbers;
+7. refuses (exit 4, no result) if JAX or the JAX package was loaded;
+8. prints the compared numbers beside their limits on standard error and
    one JSON line on standard output.
 """
 
@@ -42,8 +48,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .paths import DEFAULT, INTERFACE
+
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "rsem_tpu")
+
+
+class CellError(Exception):
+    """The cell's files do not fit together (exit 5)."""
 
 
 def process_age() -> float:
@@ -67,17 +79,22 @@ class Cell:
     workload: Dict
     config: Dict
     traffic: Dict
+    files: Path = HERE  # where its files (and its path and readers) lie
+
+    @property
+    def path_name(self) -> str:
+        return self.config.get("path", DEFAULT)
 
 
-def load_cell(root: Path, name: str) -> Cell:
+def load_cell(root: Path, name: str, files: Path = HERE) -> Cell:
     bench = load_json(root / "BENCHMARK.json")
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
-    wl = load_json(HERE / "workloads" / f"{name}.json")
-    cfg = load_json(HERE / "configs" / f"{entry['config']}.json")
-    tr = load_json(HERE / "traffic" / f"{entry['traffic']}.json")
-    return Cell(name, bench, wl, cfg, tr)
+    wl = load_json(files / "workloads" / f"{name}.json")
+    cfg = load_json(files / "configs" / f"{entry['config']}.json")
+    tr = load_json(files / "traffic" / f"{entry['traffic']}.json")
+    return Cell(name, bench, wl, cfg, tr, files)
 
 
 def metric_entries(cell: Cell, trace: bool) -> List[Dict]:
@@ -88,12 +105,46 @@ def metric_entries(cell: Cell, trace: bool) -> List[Dict]:
             if "workloads" not in m or cell.name in m["workloads"]]
 
 
-def load_reader(name: str) -> ModuleType:
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"gpubench.metrics.{name.replace('.', '_')}", path)
+def _exec(module: str, path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_reader(name: str, files: Path = HERE) -> ModuleType:
+    return _exec(f"gpubench.metrics.{name.replace('.', '_')}",
+                 files / "metrics" / f"{name}.py")
+
+
+def load_path(cell: Cell) -> ModuleType:
+    """The cell's estimation path, checked against its interface and the
+    cell's limits; raises CellError saying what does not fit."""
+    name = cell.path_name
+    file = cell.files / "paths" / f"{name}.py"
+    if not (isinstance(name, str) and name.isascii() and name.isidentifier()
+            and file.is_file()):
+        raise CellError(f"configuration {cell.workload['config']!r} names "
+                        f"path {name!r}, but there is no {file}")
+    # Two loaders only so that tests can patch the repository's own path:
+    # it is imported as the package's module, one object a name; a path
+    # of another directory (a test's cell) is executed from its file.
+    if cell.files == HERE:
+        mod = importlib.import_module(f"gpubench.paths.{name}")
+    else:
+        mod = _exec(f"gpubench_paths_{name}", file)
+    lacks = [m for m in INTERFACE if not hasattr(mod, m)]
+    if lacks:
+        raise CellError(f"path {name!r} ({file}) lacks "
+                        f"{', '.join(lacks)}")
+    if not mod.NUMBERS:
+        raise CellError(f"path {name!r} ({file}) judges no number")
+    limits, numbers = set(cell.workload["limits"]), set(mod.NUMBERS)
+    if limits != numbers:
+        raise CellError(
+            f"workload {cell.name!r} has limits for "
+            f"{sorted(limits)}, but path {name!r} judges "
+            f"{sorted(numbers)}")
     return mod
 
 
@@ -126,28 +177,16 @@ def check_devices(chips: int) -> Optional[str]:
     return None
 
 
-def work_of(inp, sample) -> Dict:
-    """The yardstick's sizes of one sample as it ran."""
-    from .yardstick.work import Work
-
-    from rsem_tpu_torch.engine.em import EMConfig
-
-    model_rounds = EMConfig().update_model_rounds
-    return Work(hits=inp.bundle.hits.n_hits, reads=inp.bundle.hits.n_reads,
-                isoforms=inp.ref.M,
-                read_len=int(inp.bundle.reads.mate1.codes.shape[1]),
-                model_rounds=model_rounds,
-                theta_rounds=max(sample.rounds - model_rounds,
-                                 0))._asdict()
-
-
 def run(args, device: str = "cuda:0", check_chip: bool = True,
-        root: Optional[Path] = None, out=sys.stdout, err=sys.stderr) -> int:
+        root: Optional[Path] = None, out=sys.stdout, err=sys.stderr,
+        files: Path = HERE) -> int:
     """One run; returns the exit code. Tests call it with device="cpu" and
     check_chip=False at small sizes (the traffic file's values can be
-    overridden through args.override, a dict)."""
+    overridden through args.override, a dict), and with `files`, the
+    directory of the cells' files, paths and readers, to run cells of
+    their own."""
     root = root or Path.cwd()
-    cell = load_cell(root, args.workload)
+    cell = load_cell(root, args.workload, files)
     for k, v in (getattr(args, "override", None) or {}).items():
         (cell.traffic if k in cell.traffic else cell.config)[k] = v
     chips = int(cell.workload["chips"])
@@ -156,14 +195,17 @@ def run(args, device: str = "cuda:0", check_chip: bool = True,
         if why:
             print(f"gpubench: {why}; no result", file=err)
             return 3
+    try:
+        path = load_path(cell)
+    except CellError as e:
+        print(f"gpubench: {e}; no result", file=err)
+        return 5
 
     import torch
 
     from . import sut
     from .gen import bundle as gb
     from .gen import synth
-    from .reference import compare
-    from .reference.em import REFERENCE, reference_expression
 
     cuda = torch.device(device).type == "cuda"
     seed = int(args.seed)
@@ -185,7 +227,7 @@ def run(args, device: str = "cuda:0", check_chip: bool = True,
     order = np.random.default_rng(synth.sub_seed(seed, 7)).permutation(
         n_samples)
     # builds the kernels, warms the allocator
-    sut.run_sample(inputs[order[-1]], device, keep_values=False)
+    path.run_sample(inputs[order[-1]], device, keep_values=False)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     setup_s = process_age()
 
@@ -196,7 +238,7 @@ def run(args, device: str = "cuda:0", check_chip: bool = True,
     while True:
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
-        s = sut.run_sample(inputs[order[i % n_samples]], device)
+        s = path.run_sample(inputs[order[i % n_samples]], device)
         if cuda:
             s.peak_bytes = int(torch.cuda.max_memory_allocated(device))
             peak = max(peak, s.peak_bytes)
@@ -215,8 +257,8 @@ def run(args, device: str = "cuda:0", check_chip: bool = True,
 
         def one(j):
             inp = inputs[order[(i + j) % n_samples]]
-            s = sut.run_sample(inp, device, keep_values=False)
-            return work_of(inp, s)
+            s = path.run_sample(inp, device, keep_values=False)
+            return path.work(inp, s)
 
         trace = profile_samples(one, int(tw["warmup"]), int(tw["active"]))
         if cuda:
@@ -226,7 +268,7 @@ def run(args, device: str = "cuda:0", check_chip: bool = True,
     ctx = Context(cell, setup_s, window_s, samples, trace)
     metrics: Dict[str, Dict] = {}
     for entry in metric_entries(cell, bool(int(args.trace))):
-        value = load_reader(entry["name"]).read(ctx)
+        value = load_reader(entry["name"], cell.files).read(ctx)
         if value is not None:
             metrics[entry["name"]] = {"value": float(value),
                                       "unit": entry["unit"]}
@@ -243,13 +285,12 @@ def run(args, device: str = "cuda:0", check_chip: bool = True,
     worst = {name: 0.0 for name in limits}
     failed = 0
     for k in sorted({s.index for s in samples}):
-        want = reference_expression(ann, raws[k], cell.config, device,
-                                    REFERENCE)
-        units = compare.read_units(want, ann.iso_gene, ann.n_genes)
+        want = path.reference(ann, raws[k], cell.config, device,
+                              "reference")
         for s in samples:
             if s.index != k:
                 continue
-            g = compare.gaps(s.values, want, units)
+            g = path.gaps(s.values, want, ann)
             bad = False
             for name in limits:
                 worst[name] = max(worst[name], g[name])

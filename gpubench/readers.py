@@ -39,7 +39,8 @@ def roofline(ctx, kernels: Iterable[str],
         return None
     least = 0.0
     for w in tr.work:
-        b, f = work(Work(**w))
+        # a path's sizes that Work does not name are for readers of their own
+        b, f = work(Work(**{k: w[k] for k in Work._fields if k in w}))
         least += least_seconds(b, f, H100_SXM)
     if least <= 0:
         return None

@@ -13,7 +13,6 @@ import pytest
 
 from gpubench.control import control_numbers
 from gpubench.harness import load_cell
-from gpubench.reference.em import STATED
 from gpubench.tests.conftest import ROOT, SMALL
 
 CELLS = ["tcga_bulk_em", "tcga_cells_em"]
@@ -37,7 +36,7 @@ def test_control_fails_a_number(cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_stated_precision_within_limits(cell):
     c = _cell(cell)
-    nums = control_numbers(c, 2**31 + 5, 1, "cpu", STATED)
+    nums = control_numbers(c, 2**31 + 5, 1, "cpu", "stated")
     for k, v in c.workload["limits"].items():
         assert nums[k] <= v, (k, nums[k], v)
 

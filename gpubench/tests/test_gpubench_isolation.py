@@ -38,7 +38,7 @@ def test_reference_imports_nothing_of_the_program():
 def test_harness_imports_no_jax():
     top = _loaded(["gpubench.harness", "gpubench.sut", "gpubench.trace",
                    "gpubench.readers", "gpubench.control",
-                   "gpubench.gen.bundle"])
+                   "gpubench.gen.bundle", "gpubench.paths.em"])
     assert not top & set(NEVER)  # compared whole: rsem_tpu_torch is allowed
     assert "rsem_tpu_torch" in top
 
@@ -69,12 +69,12 @@ def test_call_sequence_follows_calculate_expression():
     the EM stage)."""
     from rsem_tpu_torch.pipeline import calculate_expression as ce
 
-    from gpubench import sut
+    from gpubench.paths import em as em_path
 
     src = inspect.getsource(ce)
     em = src.index("# ---- EM ----")
     stages = src[em:src.index("# ---- final tables ----")]
-    mine = inspect.getsource(sut.run_sample)
+    mine = inspect.getsource(em_path.run_sample)
     steps = STEPS[1:]
     assert _order(stages, steps) == steps
     assert _order(mine, STEPS) == STEPS
@@ -90,18 +90,19 @@ def test_call_sequence_recorded(monkeypatch):
     import io
     from pathlib import Path
 
-    from gpubench import harness, sut
+    from gpubench import harness
+    from gpubench.paths import em as em_path
     from gpubench.tests.conftest import SMALL
 
     calls = []
 
     def wrap(name):
-        real = getattr(sut, name)
+        real = getattr(em_path, name)
 
         def rec(*a, **kw):
             calls.append(name)
             return real(*a, **kw)
-        monkeypatch.setattr(sut, name, rec)
+        monkeypatch.setattr(em_path, name, rec)
 
     for n in ("clear_device_cache", "run_em", "gene_level_values"):
         wrap(n)

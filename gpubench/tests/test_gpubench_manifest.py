@@ -1,6 +1,7 @@
 """BENCHMARK.json and the files it names: present, parsed, and within the
 manifest's format (names, units, keys, limits of counts and lengths)."""
 
+import importlib
 import importlib.util
 import json
 import re
@@ -133,3 +134,26 @@ def test_layers_are_named_alike():
     if p.is_file() and "__pycache__" not in p.parts))
 def test_file_names(path):
     assert PATH.match(path)
+
+
+def test_configs_name_a_path_with_its_interface():
+    from gpubench.paths import DEFAULT, INTERFACE
+
+    for c in BENCH["configs"]:
+        name = json.loads(Path(ROOT, c["file"]).read_text()).get(
+            "path", DEFAULT)
+        assert name.isascii() and name.isidentifier()
+        assert (GB / "paths" / f"{name}.py").is_file()
+        mod = importlib.import_module(f"gpubench.paths.{name}")
+        assert all(hasattr(mod, m) for m in INTERFACE), name
+        assert all(callable(getattr(mod, m)) for m in INTERFACE[1:]), name
+        assert mod.NUMBERS and all(NAME.match(n) for n in mod.NUMBERS)
+
+
+def test_limits_name_their_paths_numbers():
+    from gpubench.harness import load_cell, load_path
+
+    for w in BENCH["workloads"]:
+        cell = load_cell(Path(ROOT), w["name"])
+        numbers = load_path(cell).NUMBERS
+        assert set(cell.workload["limits"]) == set(numbers), w["name"]

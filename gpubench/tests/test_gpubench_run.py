@@ -12,7 +12,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from gpubench import harness, sut
+from gpubench import harness
+from gpubench.paths import em as em_path
 from gpubench.tests.conftest import ROOT, SMALL
 
 CELLS = ["tcga_bulk_em", "tcga_cells_em"]
@@ -121,7 +122,7 @@ def _half_batch(monkeypatch):
     from rsem_tpu_torch.io.reads import PairedReadArrays, ReadArrays
     from rsem_tpu_torch.io.sam import AlignmentBundle
 
-    real = sut.run_em
+    real = em_path.run_em
 
     def half(model, ref, bundle, cfg, **kw):
         n = bundle.hits.n_reads // 2
@@ -144,13 +145,13 @@ def _half_batch(monkeypatch):
         em.counts = em.counts * (bundle.hits.n_reads / n)
         return em
 
-    monkeypatch.setattr(sut, "run_em", half)
+    monkeypatch.setattr(em_path, "run_em", half)
 
 
 def _answer_altered(monkeypatch):
     """One read added, where the EM's counts are made, to the isoform that
     holds the fewest."""
-    real = sut.run_em
+    real = em_path.run_em
 
     def altered(*a, **kw):
         em = real(*a, **kw)
@@ -160,7 +161,7 @@ def _answer_altered(monkeypatch):
         em.counts = c
         return em
 
-    monkeypatch.setattr(sut, "run_em", altered)
+    monkeypatch.setattr(em_path, "run_em", altered)
 
 
 @pytest.mark.parametrize("fault", [_state_unchanged, _half_batch,
